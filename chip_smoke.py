@@ -4,28 +4,38 @@
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. device   - needs a CUDA GPU; prints its name and power limit.
-  2. build    - compiles every csrc/*.cu with nvcc (one process per source).
-  3. kernels  - each kernel at the shapes of the flagship eval step, against
-                its plain PyTorch version in f32 and bf16; times the kernel,
-                the plain version and one PyTorch library call doing the same
+  2. build    - compiles every csrc/*.cu with nvcc (one process per source,
+                all started together).
+  3. kernels  - each kernel at the shapes of the flagship steps, against its
+                plain PyTorch version in f32 and bf16; times the kernel, the
+                plain version and one PyTorch library call doing the same
                 work (CUDA events, median of 7 runs of 20 launches, inputs
                 rotated through enough copies to miss the 50 MB L2), and
                 works out the least time the card could take.
-  4. slice    - the flagship eval step (LanguageBind ViT-L/14 image tower +
+  4. eval     - the flagship eval step (LanguageBind ViT-L/14 image tower +
                 CLIP text tower + `sum` head, seeded random weights, bf16
                 encoder, B=64, missing codes rotating over {0, 1, 4}) through
                 make_eval_step; checks that every step launched K1 24 times
                 and K2 12 times, that the outputs are finite and the probs sum
                 to 1, and times samples/s. Then holds the card's f32 logits
                 for 4 rows against the CPU's plain path.
-  5. summary  - a `{"kernels": [...]}` line, the card's name and power limit,
+  5. train    - the flagship train step (bench.py's train workload: the same
+                model, B=64 as 4 microbatches of 16, LoRA-only vision grads,
+                Adam at lr 1e-4, head dropout 0.1, no remat) through
+                make_train_step; checks that every step launched K1 96, K3 96
+                and K2 48 times, that the loss is finite, that no frozen leaf
+                moved and the trainable ones did, and times samples/s. Then
+                holds the card's f32 gradients for 4 rows (LoRA B non-zero,
+                TF32 off) against the CPU's plain path.
+  6. summary  - a `{"kernels": [...]}` line, the card's name and power limit,
                 and as the last line {"ok": true, "device": {...}}.
---profile adds one torch.profiler-traced eval step and prints device time by
-kernel.
+--profile adds one torch.profiler-traced eval step and one traced train step
+and prints device time by kernel.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import json
 import math
@@ -42,11 +52,18 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 L2_BYTES = 50e6
-B = 64                      # the flagship eval batch (bench.py eval workload)
+B = 64                      # the flagship batch (bench.py eval and train)
+ACCUM = 4                   # bench.py's train microbatches (4 x 16)
+LR = 1e-4                   # bench.py's train learning rate
 STEPS = 5
 TOL = {torch.float32: (1e-4, 0.0),      # summation order only
        torch.bfloat16: (2e-2, 2 ** -7)}  # P rounded at other places; out ulp
+# K3 vs its plain version, ||got - ref|| / ||ref|| per gradient. f32:
+# summation order only. bf16: P and dS rounded to bf16 as product operands,
+# D from the bf16 output, each gradient rounded to bf16.
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LOGITS_F32_ATOL = 1e-3                  # card f32 vs CPU f32, 24 + 12 layers
+GRADS_F32_RTOL = 1e-3                   # the same, for the gradients
 
 
 def card_line() -> str:
@@ -54,6 +71,21 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """f32 products in full f32 (the reference checks), then the settings
+    as they were."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 def median_ms(fn, reps=7, iters=20) -> float:
@@ -169,10 +201,91 @@ def kernel_phase(dev, rng):
               f" ms, sdpa {row['library_ms']:.4f} ms, bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
         rows.append(row)
+    rows.append(backward_row(dev, gen))
     return rows
 
 
-def flagship_config(compute_dtype):
+def backward_row(dev, gen):
+    """K3 at the train step's shape: one microbatch of 16 images."""
+    from missm_tpu_torch.kernels import attention as K
+
+    b, n, heads, hd = B // ACCUM, 257, 16, 64
+    d = heads * hd
+    row = {"name": "attention_bwd", "route": "cuda",
+           "source": "missm_tpu_torch/csrc/attention_bwd.cu",
+           "replaces": "missm_tpu/kernels/flash_attention.py:512 "
+                       "(fused_attention_cls_bwd)",
+           "shape": f"B={b} N={n} H={heads} hd={hd}"}
+
+    def inputs(dtype):
+        q, k, v, g = (torch.randn(b, n, d, generator=gen, device=dev)
+                      .to(dtype) for _ in range(4))
+        out, lse = K._launch(q, k, v, None, heads, causal=False,
+                             want_lse=True)
+        return q, k, v, out, lse, g
+
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        q, k, v, out, lse, g = inputs(dtype)
+        got = K._launch_bwd(q, k, v, out, lse, g, heads)
+        ref = K.attention_bwd_plain(q, k, v, g, heads)
+        torch.cuda.synchronize()
+        rel = max(((x.float() - r.float()).norm() / r.float().norm()).item()
+                  for x, r in zip(got, ref))
+        err = max((x.float() - r.float()).abs().max().item()
+                  for x, r in zip(got, ref))
+        if not (rel <= GRAD_TOL[dtype]
+                and all(torch.isfinite(x).all() for x in got)):
+            raise AssertionError(f"attention_bwd {tag}: kernel disagrees with "
+                                 f"the plain version, relative error {rel:.3e}"
+                                 f" (limit {GRAD_TOL[dtype]})")
+        row[f"max_abs_err_{tag}"] = err
+        row[f"rel_err_{tag}"] = rel
+    row["max_abs_err"] = row["max_abs_err_bf16"]
+
+    # timing, bf16: q, k, v, o, dO read, dq, dk, dv written, lse read
+    io_bytes = 8 * b * n * d * 2 + b * heads * n * 4
+    copies = max(1, math.ceil(2 * L2_BYTES / io_bytes))
+    sets = [inputs(torch.bfloat16) for _ in range(copies)]
+    cyc = itertools.cycle(sets)
+    def plain():
+        q, k, v, _, _, g = next(cyc)
+        return K.attention_bwd_plain(q, k, v, g, heads)
+
+    row["ms"] = median_ms(lambda: K._launch_bwd(*next(cyc), heads))
+    row["plain_ms"] = median_ms(plain)
+
+    # the yardstick: the backward alone of SDPA, on a kept graph
+    def sdpa_graph(q, k, v, out, lse, g):
+        def heads_first(t):
+            return t.view(b, n, heads, hd).transpose(1, 2)
+        leaves = [heads_first(t).detach().requires_grad_() for t in (q, k, v)]
+        o = torch.nn.functional.scaled_dot_product_attention(*leaves)
+        return o, leaves, heads_first(g)
+
+    graphs = itertools.cycle([sdpa_graph(*x) for x in sets])
+
+    def sdpa_backward():
+        o, leaves, g = next(graphs)
+        return torch.autograd.grad(o, leaves, g, retain_graph=True)
+
+    row["library_ms"] = median_ms(sdpa_backward)
+
+    # S recomputed, dV, dP, dQ, dK: 5 products of 2 N^2 hd per (batch, head)
+    flops = 10 * b * heads * n * n * hd
+    t_bytes = io_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    row["bound_ms"] = max(t_bytes, t_ops)
+    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"kernel attention_bwd [{row['shape']}]: rel err f32 "
+          f"{row['rel_err_f32']:.2e} bf16 {row['rel_err_bf16']:.2e} (max abs "
+          f"{row['max_abs_err_f32']:.2e} / {row['max_abs_err_bf16']:.2e}) | "
+          f"bf16 kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+          f"sdpa backward {row['library_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    return row
+
+
+def flagship_config(compute_dtype, dropout_prob=0.1):
     from missm_tpu_torch.core.config import languagebind_large
     from missm_tpu_torch.models.finetune import ModelConfig
     from missm_tpu_torch.models.fusion import FusionConfig
@@ -181,8 +294,15 @@ def flagship_config(compute_dtype):
         towers=(("image", languagebind_large("image")),),
         fusion=FusionConfig(fusion_type="sum",
                             modality_types=("language", "image"),
-                            output_dims=10, feature_dims=768, fusion_dim=256),
+                            output_dims=10, feature_dims=768, fusion_dim=256,
+                            dropout_prob=dropout_prob),
         compute_dtype=compute_dtype)
+
+
+def layers(cfg):
+    """(vision blocks, text blocks) of the one-tower flagship config."""
+    tower = cfg.towers[0][1]
+    return tower.vision.num_layers, tower.text.num_layers
 
 
 def slice_phase(dev, rng, card, profile):
@@ -218,7 +338,8 @@ def slice_phase(dev, rng, card, profile):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
-    expect = {"attention": 24 * STEPS, "causal_attention": 12 * STEPS}
+    expect = {"attention": 24 * STEPS, "attention_bwd": 0,
+              "causal_attention": 12 * STEPS}
     if launches != expect:
         raise AssertionError(f"kernel launches {launches}, expected {expect}")
     probs = out["probs"]
@@ -236,18 +357,18 @@ def slice_phase(dev, rng, card, profile):
           f"{out['loss'].item():.4f} [{card}]", flush=True)
 
     if profile:
-        profile_step(eval_step, params_bf16, data, labels, masks[0])
+        profile_step("eval", lambda: eval_step(params_bf16, data, labels,
+                                               masks[0]))
 
     # f32 on the card (no TF32) vs f32 on the CPU (plain attention)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg32 = flagship_config("float32")
     rows = {"language": {"input_ids": ids[:4], "attention_mask": mask[:4]},
             "image": image[:4]}
     miss = np.array([0, 1, 4, 0])
-    got, _ = finetune.model_forward(params, cfg32, rows, miss, device=dev)
-    got_bf16, _ = finetune.model_forward(params_bf16, cfg, rows, miss,
-                                         device=dev)
+    with no_tf32():
+        got, _ = finetune.model_forward(params, cfg32, rows, miss, device=dev)
+        got_bf16, _ = finetune.model_forward(params_bf16, cfg, rows, miss,
+                                             device=dev)
     params_cpu = finetune.tree_map(lambda t: t.cpu(), params)
     t0 = time.perf_counter()
     ref, _ = finetune.model_forward(params_cpu, cfg32, rows, miss,
@@ -263,19 +384,169 @@ def slice_phase(dev, rng, card, profile):
     return launches
 
 
-def profile_step(eval_step, params, data, labels, missing):
+def train_phase(dev, rng, card, profile):
+    from missm_tpu_torch.kernels import attention as K
+    from missm_tpu_torch.models import finetune
+    from missm_tpu_torch.train.step import init_train_state, make_train_step
+    from missm_tpu_torch.train.trainability import (FROZEN, leaves,
+                                                    param_labels)
+
+    cfg = flagship_config("bfloat16")
+    t0 = time.perf_counter()
+    params = finetune.init_model_params(cfg, seed=0, device=dev)
+    # bench.py's train batch: token ids without a mask, f32 images
+    ids, _ = text_batch(rng, B, vary_length=False)
+    data = {"language": torch.as_tensor(ids, device=dev),
+            "image": torch.as_tensor(
+                rng.standard_normal((B, 3, 224, 224)).astype(np.float32),
+                device=dev)}
+    labels = torch.as_tensor(rng.integers(0, 10, B), device=dev)
+    missing = torch.as_tensor(rng.choice([0, 1, 4], B), device=dev)
+    state, tx = init_train_state(params, cfg)
+    step = make_train_step(cfg, tx, accum_steps=ACCUM, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    flat, labels_flat = leaves(params), leaves(param_labels(params, cfg))
+    frozen = [(t, t.clone()) for t, lab in zip(flat, labels_flat)
+              if lab == FROZEN]
+    blocks = params["encoder"]["image"]["vision"]["blocks"]
+    moving = {"vision block 0 q lora_b": blocks[0]["attn"]["q"]["lora_b"],
+              "vision last block out lora_b": blocks[-1]["attn"]["out"]["lora_b"],
+              "text block 0 q w": params["encoder"]["language"]["text"]
+              ["blocks"][0]["attn"]["q"]["w"],
+              "patch_embedding": params["encoder"]["image"]["vision"]
+              ["patch_embedding"]["w"],
+              "fusion proj image w": params["fusion"]["proj"]["image"]["w"]}
+    before = {k: t.clone() for k, t in moving.items()}
+
+    losses = []
+    for _ in range(2):  # warm-up: cuBLAS plans, Adam state
+        state, m = step(state, data, labels, missing, LR, gen)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    print(f"train set-up {time.perf_counter() - t0:.1f} s", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        state, m = step(state, data, labels, missing, LR, gen)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    n_vision, n_text = layers(cfg)
+    expect = {"attention": n_vision * ACCUM * STEPS,
+              "attention_bwd": n_vision * ACCUM * STEPS,
+              "causal_attention": n_text * ACCUM * STEPS}
+    if launches != expect:
+        raise AssertionError(f"train kernel launches {launches}, expected "
+                             f"{expect}")
+    losses = torch.stack(losses)
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"non-finite train loss: {losses.tolist()}")
+    moved_frozen = sum(not torch.equal(t, t0_) for t, t0_ in frozen)
+    if moved_frozen:
+        raise AssertionError(f"{moved_frozen} frozen leaves moved")
+    still = [k for k, t in moving.items() if torch.equal(t, before[k])]
+    if still:
+        raise AssertionError(f"trainable leaves did not move: {still}")
+    rate = B * STEPS / dt
+    print(f"slice train: {STEPS} steps of B={B} ({ACCUM} x {B // ACCUM}) in "
+          f"{dt:.4f} s = {rate:.2f} samples/s, {dt / STEPS * 1e3:.3f} "
+          f"ms/step, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB, losses {[round(x, 4) for x in losses.tolist()]}; "
+          f"{len(frozen)} frozen leaves unchanged, {len(moving)} trainable "
+          f"leaves moved [{card}]", flush=True)
+
+    if profile:
+        profile_step("train", lambda: step(state, data, labels, missing, LR,
+                                           gen))
+    del state, tx, step, frozen, params
+    grad_check(dev, rng)
+    return launches
+
+
+def grad_check(dev, rng):
+    """f32 gradients on the card (TF32 off) against the CPU's plain path,
+    4 rows at full depth, LoRA B non-zero so the LoRA A gradients are too."""
+    from missm_tpu_torch.kernels import attention as K
+    from missm_tpu_torch.models import finetune
+    from missm_tpu_torch.train.step import compute_loss, partition_trainable
+
+    cfg = flagship_config("float32", dropout_prob=0.0)
+    params = finetune.init_model_params(cfg, seed=1, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    blocks = params["encoder"]["image"]["vision"]["blocks"]
+    for block in blocks:
+        for proj in block["attn"].values():
+            proj["lora_b"].normal_(0.0, 0.01, generator=gen)
+    ids, mask = text_batch(rng, 4, vary_length=True)
+    data = {"language": {"input_ids": ids, "attention_mask": mask},
+            "image": rng.standard_normal((4, 3, 224, 224)).astype(np.float32)}
+    labels, missing = np.array([1, 5, 7, 2]), np.array([0, 1, 4, 0])
+
+    def watched(p):
+        b = p["encoder"]["image"]["vision"]["blocks"]
+        return {
+            "vision block 0 q lora_a": b[0]["attn"]["q"]["lora_a"],
+            "vision block 0 q lora_b": b[0]["attn"]["q"]["lora_b"],
+            "vision last block out lora_a": b[-1]["attn"]["out"]["lora_a"],
+            "vision last block out lora_b": b[-1]["attn"]["out"]["lora_b"],
+            "patch_embedding": p["encoder"]["image"]["vision"]
+            ["patch_embedding"]["w"],
+            "text block 0 q w": p["encoder"]["language"]["text"]["blocks"][0]
+            ["attn"]["q"]["w"],
+            "fusion proj image w": p["fusion"]["proj"]["image"]["w"],
+            "fusion proj language w": p["fusion"]["proj"]["language"]["w"]}
+
+    def grads(p, device):
+        partition_trainable(p, cfg)
+        loss, _ = compute_loss(p, None, cfg, data, labels, missing, None,
+                               device=device)
+        loss.backward()
+        return loss.item(), {k: t.grad.cpu() for k, t in watched(p).items()}
+
+    card = finetune.tree_map(lambda t: t.detach().to(dev), params)
+    before = dict(K.LAUNCHES)
+    with no_tf32():
+        loss_gpu, g_gpu = grads(card, dev)
+        torch.cuda.synchronize()
+    via = {k: v - before[k] for k, v in K.LAUNCHES.items()}
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = grads(params, "cpu")
+    cpu_s = time.perf_counter() - t0
+    rel = {k: ((g_gpu[k] - g_cpu[k]).norm() / g_cpu[k].norm()).item()
+           for k in g_cpu}
+    print(f"slice f32 grads, card vs CPU plain (4 rows, {'/'.join(map(str, layers(cfg)))}"
+          f" vision/text layers, CPU {cpu_s:.1f} s, kernels on the card {via}):"
+          f" loss {loss_gpu:.6f} vs "
+          f"{loss_cpu:.6f}; relative error by leaf "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          + f" (limit {GRADS_F32_RTOL})", flush=True)
+    if via["attention_bwd"] != layers(cfg)[0] or not all(
+            v <= GRADS_F32_RTOL for v in rel.values()):
+        raise AssertionError("card f32 gradients disagree with the CPU's")
+
+
+def profile_step(name, run):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eval_step(params, data, labels, missing)
+        run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    # device kernels only: a record_function range (the optimizer's step)
+    # also shows a device span, which would count its kernels twice
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.")]
     groups = {"attention kernels": ("attention_bf16", "attention_f32"),
+              "attention backward kernels": ("attention_bwd",),
               "GEMM": ("gemm", "nvjet", "cutlass", "xmma"),
               "layer_norm": ("layer_norm",), "conv": ("conv",)}
     by_group = dict.fromkeys([*groups, "other elementwise/copies"], 0.0)
@@ -285,7 +556,8 @@ def profile_step(eval_step, params, data, labels, missing):
                      "other elementwise/copies")
         by_group[group] += e.self_device_time_total / 1e3
     busy = sum(by_group.values())
-    print(f"profile: one traced eval step, wall {wall:.3f} ms, device "
+    print(f"profile: one traced {name} step, wall {wall:.3f} ms, "
+          f"{sum(e.count for e in kernels)} kernel launches, device "
           f"kernel time {busy:.3f} ms, idle share {1 - busy / wall:.3f}; "
           + ", ".join(f"{g} {t:.3f} ms" for g, t in by_group.items()),
           flush=True)
@@ -297,7 +569,8 @@ def profile_step(eval_step, params, data, labels, missing):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one eval step with torch.profiler")
+                    help="also trace one eval and one train step with "
+                         "torch.profiler")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -323,14 +596,23 @@ def main() -> int:
                 if "bf16ILi64E" in entries[i]]
         print(f"build csrc/{src}.cu: {seconds:.1f} s; bf16 hd=64 kernels: "
               f"{main}", flush=True)
+        out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, f"ptxas_{src}.log"), "w") as f:
+            f.write(log)
     K.reset_launches()
 
     rng = np.random.default_rng(0)
     rows = kernel_phase(dev, rng)
-    launches = slice_phase(dev, rng, card, args.profile)
+    paths = {"eval": slice_phase(dev, rng, card, args.profile),
+             "train": train_phase(dev, rng, card, args.profile)}
     for row in rows:
-        row["launches"] = launches[row["name"]]
-        row["launches_per_step"] = launches[row["name"]] // STEPS
+        # launches: over the counted steps of every path that runs it
+        row["launches"] = sum(p[row["name"]] for p in paths.values())
+        row["launches_per_step"] = {path: p[row["name"]] // STEPS
+                                    for path, p in paths.items()
+                                    if p[row["name"]]}
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,10 @@
 //   K2  fused_attention(causal=True, kbias=...) (_attn_kernel_packed): the
 //       text tower's causal attention with an additive key bias [B, 1, N]
 //       (finfo(float32).min at padded keys), q [B, 77, 12*64].
-// Both are the same kernel here, templated on CAUSAL and HAS_KBIAS.
+// Both are the same kernel here, templated on CAUSAL and HAS_KBIAS. With
+// WRITE_LSE (bias-free only: the K1 forward called for autograd) it also
+// writes each row's log-sum-exp, f32 [B, H, N], which the backward kernel
+// (attention_bwd.cu) uses to recompute P; eval never sets it.
 //
 // Math (as the Pallas kernels): s = (q . k) * hd^-0.5 in f32; s += kbias[key];
 // then s = finfo(float32).min where key > query (causal). Softmax in f32 with
@@ -100,13 +103,14 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
   }
 }
 
-template <int HD, bool CAUSAL, bool HAS_KBIAS>
+template <int HD, bool CAUSAL, bool HAS_KBIAS, bool WRITE_LSE>
 __global__ void __launch_bounds__(kThreads)
 attention_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
                const float* __restrict__ kbias,
-               __nv_bfloat16* __restrict__ out, int n, int h, float scale) {
+               __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int n,
+               int h, float scale) {
   // Pitch HD + 8 puts the 8 rows x 4 column pairs a warp's fragment load
   // touches on 32 distinct banks.
   constexpr int LD = HD + 8;
@@ -244,6 +248,11 @@ attention_bf16(const __nv_bfloat16* __restrict__ q,
   }
   const float inv0 = 1.f / l0;
   const float inv1 = 1.f / l1;
+  if (WRITE_LSE && t == 0) {
+    float* row = lse + ((size_t)b * h + head) * n;
+    if (qi0 < n) row[qi0] = m0 + logf(l0);
+    if (qi1 < n) row[qi1] = m1 + logf(l1);
+  }
 #pragma unroll
   for (int j = 0; j < kOTiles; ++j) {
     const int col = j * 8 + 2 * t;
@@ -263,11 +272,12 @@ attention_bf16(const __nv_bfloat16* __restrict__ q,
 constexpr int kF32Rows = 32;  // query rows per block (128 threads)
 constexpr int kF32Keys = 32;  // keys per tile
 
-template <int HD, bool CAUSAL, bool HAS_KBIAS>
+template <int HD, bool CAUSAL, bool HAS_KBIAS, bool WRITE_LSE>
 __global__ void __launch_bounds__(kThreads)
 attention_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ kbias,
-              float* __restrict__ out, int n, int h, float scale) {
+              float* __restrict__ out, float* __restrict__ lse, int n, int h,
+              float scale) {
   constexpr int R = HD / 4;  // dims per thread: part, part + 4, part + 8, ...
   __shared__ __align__(16) float ks[kF32Keys * HD];
   __shared__ __align__(16) float vs[kF32Keys * HD];
@@ -332,59 +342,71 @@ attention_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
   if (qi < n) {
     const float inv = 1.f / l;
+    if (WRITE_LSE && part == 0)
+      lse[((size_t)blockIdx.z * h + blockIdx.y) * n + qi] = m + logf(l);
 #pragma unroll
     for (int i = 0; i < R; ++i) out[base + (size_t)qi * d + part + 4 * i] = o[i] * inv;
   }
 }
 
-template <int HD, bool CAUSAL, bool HAS_KBIAS>
+template <int HD, bool CAUSAL, bool HAS_KBIAS, bool WRITE_LSE>
 void launch(const void* q, const void* k, const void* v, const void* kbias,
-            void* out, int b, int n, int h, int is_bf16, float scale,
-            cudaStream_t stream) {
+            void* out, float* lse, int b, int n, int h, int is_bf16,
+            float scale, cudaStream_t stream) {
   if (is_bf16) {
     const dim3 grid((n + kBQ - 1) / kBQ, h, b);
-    attention_bf16<HD, CAUSAL, HAS_KBIAS><<<grid, kThreads, 0, stream>>>(
+    attention_bf16<HD, CAUSAL, HAS_KBIAS, WRITE_LSE><<<grid, kThreads, 0, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(kbias),
-        static_cast<__nv_bfloat16*>(out), n, h, scale);
+        static_cast<__nv_bfloat16*>(out), lse, n, h, scale);
   } else {
     const dim3 grid((n + kF32Rows - 1) / kF32Rows, h, b);
-    attention_f32<HD, CAUSAL, HAS_KBIAS><<<grid, kThreads, 0, stream>>>(
+    attention_f32<HD, CAUSAL, HAS_KBIAS, WRITE_LSE><<<grid, kThreads, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(kbias),
-        static_cast<float*>(out), n, h, scale);
+        static_cast<float*>(out), lse, n, h, scale);
   }
 }
 
+// The log-sum-exp is written only for bias-free attention (K1 under
+// autograd); the causal path's backward is plain PyTorch.
 template <int HD>
 void launch_flags(const void* q, const void* k, const void* v,
-                  const void* kbias, void* out, int b, int n, int h,
-                  int is_bf16, int causal, float scale, cudaStream_t stream) {
+                  const void* kbias, void* out, float* lse, int b, int n,
+                  int h, int is_bf16, int causal, float scale,
+                  cudaStream_t stream) {
   if (causal) {
-    if (kbias) launch<HD, true, true>(q, k, v, kbias, out, b, n, h, is_bf16, scale, stream);
-    else launch<HD, true, false>(q, k, v, kbias, out, b, n, h, is_bf16, scale, stream);
+    if (kbias) launch<HD, true, true, false>(q, k, v, kbias, out, lse, b, n, h, is_bf16, scale, stream);
+    else launch<HD, true, false, false>(q, k, v, kbias, out, lse, b, n, h, is_bf16, scale, stream);
+  } else if (kbias) {
+    launch<HD, false, true, false>(q, k, v, kbias, out, lse, b, n, h, is_bf16, scale, stream);
+  } else if (lse) {
+    launch<HD, false, false, true>(q, k, v, kbias, out, lse, b, n, h, is_bf16, scale, stream);
   } else {
-    if (kbias) launch<HD, false, true>(q, k, v, kbias, out, b, n, h, is_bf16, scale, stream);
-    else launch<HD, false, false>(q, k, v, kbias, out, b, n, h, is_bf16, scale, stream);
+    launch<HD, false, false, false>(q, k, v, kbias, out, lse, b, n, h, is_bf16, scale, stream);
   }
 }
 
 }  // namespace
 
 // q, k, v, out: [b, n, h * head_dim] contiguous, 16-byte aligned, bf16
-// (is_bf16 = 1) or f32. kbias: [b, 1, n] f32 or null. head_dim: a multiple
-// of 16 up to 128. Launches on `stream` and returns cudaGetLastError()
-// (cudaErrorInvalidValue for a head_dim it was not built for).
+// (is_bf16 = 1) or f32. kbias: [b, 1, n] f32 or null. lse: [b, h, n] f32
+// written when not null (bias-free, non-causal only; cudaErrorInvalidValue
+// otherwise). head_dim: a multiple of 16 up to 128. Launches on `stream` and
+// returns cudaGetLastError() (cudaErrorInvalidValue for a head_dim it was
+// not built for).
 extern "C" int missm_attention_forward(const void* q, const void* k,
                                        const void* v, const void* kbias,
-                                       void* out, int b, int n, int h,
-                                       int head_dim, int is_bf16, int causal,
-                                       float scale, void* stream) {
+                                       void* out, void* lse, int b, int n,
+                                       int h, int head_dim, int is_bf16,
+                                       int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (l && (causal || kbias)) return static_cast<int>(cudaErrorInvalidValue);
   switch (head_dim) {
 #define MISSM_HD(HD)                                                        \
   case HD:                                                                  \
-    launch_flags<HD>(q, k, v, kbias, out, b, n, h, is_bf16, causal, scale, s); \
+    launch_flags<HD>(q, k, v, kbias, out, l, b, n, h, is_bf16, causal, scale, s); \
     break;
     MISSM_HD(16) MISSM_HD(32) MISSM_HD(48) MISSM_HD(64)
     MISSM_HD(80) MISSM_HD(96) MISSM_HD(112) MISSM_HD(128)

@@ -37,13 +37,15 @@ def build_encoder_params(towers: Dict[str, dict], order: Sequence[str]):
 
 
 def encode(params, tower_cfgs: Mapping[str, TowerConfig], inputs: Mapping, *,
-           use_temp: bool = True, train: bool = False) -> Dict[str, torch.Tensor]:
+           use_temp: bool = True, train: bool = False,
+           remat: bool = False) -> Dict[str, torch.Tensor]:
     """inputs: {'language': input_ids [B, L] or {'input_ids', 'attention_mask'}}
     and/or {modality: pixel_values [B, C, H, W]}.
 
     Returns {modality: [B, projection_dim]} L2-normalised embeddings, the
     non-language ones times exp(logit_scale) when `use_temp`. Missing-modality
-    masking happens after the encoder, in the fusion head."""
+    masking happens after the encoder, in the fusion head. `remat` applies to
+    every tower (models/tower.py::_block_forward)."""
     out = {}
     any_cfg = next(iter(tower_cfgs.values()))
     for name, value in inputs.items():
@@ -53,13 +55,13 @@ def encode(params, tower_cfgs: Mapping[str, TowerConfig], inputs: Mapping, *,
             else:
                 ids, am = value, None
             _, pooled = text_features(params["language"]["text"], any_cfg.text,
-                                      ids, am,
+                                      ids, am, remat=remat,
                                       projection=params["language"]["proj"])
             out[name] = l2_normalize(pooled)
         else:
             pooled = vision_features(params[name]["vision"],
                                      tower_cfgs[name].vision, value,
-                                     train=train,
+                                     train=train, remat=remat,
                                      projection=params[name]["proj"])
             pooled = l2_normalize(pooled)
             if use_temp:

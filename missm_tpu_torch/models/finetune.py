@@ -3,7 +3,8 @@ missm_tpu/models/finetune.py.
 
 Casts follow the JAX package: encoder params and media go to
 `compute_dtype`, the encoder's embeddings come back as f32, and the fusion
-params stay f32 throughout.
+params stay f32 throughout. Every cast is a differentiable `.to`, so in a
+train step the gradients of the bf16 copies reach the f32 master params.
 """
 from __future__ import annotations
 
@@ -23,10 +24,13 @@ from .fusion import FusionConfig, fusion_forward, init_fusion
 class ModelConfig:
     """`towers` maps each non-language modality to its TowerConfig, ordered
     (the language tower is the last entry's text tower). compute_dtype:
-    'bfloat16' runs the encoder in bf16; 'float32' for parity tests."""
+    'bfloat16' runs the encoder in bf16; 'float32' for parity tests.
+    remat: True recomputes every transformer block in the backward; the
+    JAX package's named policies raise NotImplementedError."""
     towers: Tuple[Tuple[str, TowerConfig], ...]
     fusion: FusionConfig
     use_temp: bool = True
+    remat: bool | str = False
     compute_dtype: str = "float32"
 
     @property
@@ -86,7 +90,7 @@ def _encode(params, cfg: ModelConfig, data, device, train):
     dt = getattr(torch, cfg.compute_dtype)
     data = _prepare_inputs(data, dt, resolve_device(device))
     embeds = encode(cast_tree(params["encoder"], dt), cfg.tower_dict, data,
-                    use_temp=cfg.use_temp, train=train)
+                    use_temp=cfg.use_temp, train=train, remat=cfg.remat)
     return {k: v.float() for k, v in embeds.items()}
 
 
@@ -94,7 +98,13 @@ def model_forward(params, cfg: ModelConfig, data: Mapping, missing_index, *,
                   train: bool = False, generator: torch.Generator | None = None,
                   device="cuda"):
     """data: {'language': ids [B, L] | {'input_ids', 'attention_mask'}} and
-    {modality: pixels}; returns (logits [B, output_dims] f32, aux)."""
+    {modality: pixels}; returns (logits [B, output_dims] f32, aux).
+
+    With train=True the graph is kept for a backward pass (the caller must
+    not be in inference mode). The JAX package splits its rng into an
+    encoder part and a fusion part; the only randomness on the ported path
+    is the fusion head's dropout, so `generator` goes to the fusion head
+    alone (it must lie on `device`)."""
     embeds = _encode(params, cfg, data, device, train)
     missing_index = torch.as_tensor(missing_index, device=resolve_device(device))
     return fusion_forward(params["fusion"], cfg.fusion, embeds, missing_index,

@@ -4,15 +4,18 @@ Plain functions over parameter dicts, laid out as in the JAX package (linear
 weights (in, out)), except that the transformer blocks are a list of
 per-layer dicts walked by a Python loop where JAX stacks them [L, ...] for
 `lax.scan`. This slice ports the text tower and the vision tower on 4-D
-image input; temporal attention, tube-3D embedding, 5-D/7-D video input and
-patch dropout raise NotImplementedError.
+image input, forward and backward, with full per-block remat; temporal
+attention, tube-3D embedding, 5-D/7-D video input, patch dropout and the
+named remat policies raise NotImplementedError.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import TextConfig, TowerConfig, VisionConfig
 from ..ops.attention import multi_head_attention
@@ -134,14 +137,30 @@ def init_tower_params(gen: torch.Generator, cfg: TowerConfig):
 # ---------------------------------------------------------------------------
 
 
-def _block_forward(p, x, *, num_heads, act, eps, causal=False, key_bias=None,
-                   lora_scaling=None):
-    """One pre-LN transformer block (the non-temporal branch)."""
+def _block(p, x, *, num_heads, act, eps, causal=False, key_bias=None,
+           lora_scaling=None):
     h = x + multi_head_attention(p["attn"], layer_norm(p["ln1"], x, eps),
                                  num_heads=num_heads, causal=causal,
                                  key_bias=key_bias, lora_scaling=lora_scaling)
     wide = act(linear(p["mlp"]["fc1"], layer_norm(p["ln2"], h, eps)))
     return h + linear(p["mlp"]["fc2"], wide)
+
+
+def _block_forward(p, x, *, remat=False, **kwargs):
+    """One pre-LN transformer block (the non-temporal branch).
+
+    remat=True recomputes the block in the backward and keeps only its
+    input (missm_tpu/models/tower.py's jax.checkpoint with policy=None).
+    The named policies of the JAX package save tensors by name, and the
+    attention kernels' outputs are invisible to PyTorch's selective
+    checkpointing, so they are not ported yet."""
+    if remat is False:
+        return _block(p, x, **kwargs)
+    if remat is not True:
+        raise NotImplementedError(
+            f"remat policy {remat!r} is not ported yet (only True/False)")
+    return checkpoint(functools.partial(_block, p, **kwargs), x,
+                      use_reentrant=False)
 
 
 def _encoder(blocks, x, **kwargs):
@@ -151,7 +170,7 @@ def _encoder(blocks, x, **kwargs):
 
 
 def text_features(params, cfg: TextConfig, input_ids, attention_mask=None, *,
-                  projection=None):
+                  remat=False, projection=None):
     """input_ids: [B, L] -> (last_hidden [B, L, D], pooled [B, D]).
 
     attention_mask: optional [B, L] (1 = attend, 0 = pad), turned into the
@@ -168,7 +187,7 @@ def text_features(params, cfg: TextConfig, input_ids, attention_mask=None, *,
                                0.0).float()
     x = _encoder(params["blocks"], x, num_heads=cfg.num_heads,
                  act=get_activation(cfg.hidden_act), eps=cfg.layer_norm_eps,
-                 causal=True, key_bias=key_bias)
+                 causal=True, key_bias=key_bias, remat=remat)
     x = layer_norm(params["final_ln"], x, cfg.layer_norm_eps)
     # EOT pooling: the first position of the highest token id
     eot = torch.argmax(input_ids, dim=-1)
@@ -179,9 +198,10 @@ def text_features(params, cfg: TextConfig, input_ids, attention_mask=None, *,
 
 
 def vision_features(params, cfg: VisionConfig, pixel_values, *, train=False,
-                    projection=None):
+                    remat=False, projection=None):
     """pixel_values: [B, C, H, W] -> pooled [B, D] (CLS -> post-LN ->
-    projection)."""
+    projection). `train` changes nothing here but patch dropout, which is
+    not ported: a train-mode call with force_patch_dropout > 0 raises."""
     _check_vision_config(cfg)
     if pixel_values.dim() != 4:
         raise NotImplementedError(
@@ -203,7 +223,7 @@ def vision_features(params, cfg: VisionConfig, pixel_values, *, train=False,
     lora_scaling = (cfg.lora_alpha / cfg.lora_r) if cfg.lora_r else None
     x = _encoder(params["blocks"], x, num_heads=cfg.num_heads,
                  act=get_activation(cfg.hidden_act), eps=cfg.layer_norm_eps,
-                 lora_scaling=lora_scaling)
+                 lora_scaling=lora_scaling, remat=remat)
     # one frame per image, so the JAX package's mean over frames is the
     # identity here
     pooled = layer_norm(params["post_ln"], x[:, 0, :], cfg.layer_norm_eps)

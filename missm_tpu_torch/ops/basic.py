@@ -1,7 +1,8 @@
-"""Elementwise and dense primitives (forward), after missm_tpu/ops/basic.py.
+"""Elementwise and dense primitives, after missm_tpu/ops/basic.py.
 
 Params are dicts of tensors; linear weights are (in, out) as in the JAX
-package. Matmuls accumulate in f32 and round once to the input type.
+package. Matmuls accumulate in f32 and round once to the input type. A
+LoRA'd `linear` carries the JAX package's exact-rank gradient (_LoraLinear).
 """
 from __future__ import annotations
 
@@ -35,18 +36,62 @@ def _fold_lora(w, a, b, scaling, out_dtype):
     return (w.float() + delta * scaling).to(out_dtype)
 
 
+class _LoraLinear(torch.autograd.Function):
+    """x @ (w + a @ b * scaling) + bias with exact-rank LoRA gradients, after
+    missm_tpu/ops/basic.py::_lora_matmul.
+
+    The forward uses the folded weight. The backward recomputes the fold for
+    dx and computes the adapter gradients at rank r,
+        da = x^T (dy b^T) * scaling,   db = (x a)^T dy * scaling,
+    instead of through dW_eff = x^T dy, a full [in, out] product per
+    projection. dw = x^T dy (and the bias gradient) are computed only when
+    that input needs a gradient: JAX relies on XLA removing the unused dw,
+    which eager PyTorch would compute."""
+
+    @staticmethod
+    def forward(ctx, x, w, a, b, bias, scaling):
+        ctx.save_for_backward(x, w, a, b)
+        ctx.scaling = scaling
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return F.linear(x, _fold_lora(w, a, b, scaling, x.dtype).t(), bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, a, b = ctx.saved_tensors
+        s = ctx.scaling
+        need_x, need_w, need_a, need_b, need_bias, _ = ctx.needs_input_grad
+        gc = g.to(x.dtype)
+        x2 = x.reshape(-1, x.shape[-1])
+        g2 = gc.reshape(-1, gc.shape[-1])
+        dx = dw = da = db = dbias = None
+        if need_x:
+            dx = gc @ _fold_lora(w, a, b, s, x.dtype).t()
+        if need_w:
+            dw = (x2.t() @ g2).to(w.dtype)
+        if need_a:
+            gb = g2 @ b.t().to(g2.dtype)                      # [M, r]
+            da = ((x2.t() @ gb.to(x2.dtype)).float() * s).to(a.dtype)
+        if need_b:
+            xa = x2 @ a.to(x2.dtype)                          # [M, r]
+            db = ((xa.to(g2.dtype).t() @ g2).float() * s).to(b.dtype)
+        if need_bias:
+            dbias = g2.float().sum(0).to(ctx.bias_dtype)
+        return dx, dw, da, db, dbias, None
+
+
 def linear(params, x, *, lora_scaling: float | None = None):
     """y = x @ w (+ b) with the optional folded LoRA delta.
 
     `params['w']`: (in, out); optional `params['b']`: (out,); optional
     `params['lora_a']` (in, r) and `params['lora_b']` (r, out), used when
     `lora_scaling` is given. The bias is added inside the f32-accumulating
-    matmul before the single rounding to x's type."""
-    w = params["w"]
+    matmul before the single rounding to x's type. LoRA'd projections take
+    _LoraLinear's exact-rank gradient."""
     if lora_scaling is not None and "lora_a" in params:
-        w = _fold_lora(w, params["lora_a"], params["lora_b"], lora_scaling,
-                       x.dtype)
-    return F.linear(x, w.t(), params.get("b"))
+        return _LoraLinear.apply(x, params["w"], params["lora_a"],
+                                 params["lora_b"], params.get("b"),
+                                 lora_scaling)
+    return F.linear(x, params["w"].t(), params.get("b"))
 
 
 def l2_normalize(x, dim: int = -1, eps: float = 0.0):
@@ -56,8 +101,12 @@ def l2_normalize(x, dim: int = -1, eps: float = 0.0):
 
 def dropout(x, rate: float, deterministic: bool,
             generator: torch.Generator | None = None):
+    """Inverted dropout drawing its mask from `generator` only (never from
+    torch's global generator): a train-mode call without one raises."""
     if deterministic or rate == 0.0:
         return x
+    if generator is None:
+        raise ValueError("train-mode dropout needs a torch.Generator")
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, 0.0).to(x.dtype)

@@ -1,5 +1,5 @@
-"""Classification losses, after missm_tpu/train/losses.py (the eval slice
-needs only cross-entropy)."""
+"""Classification losses, after missm_tpu/train/losses.py (the `sum` head's
+train and eval steps need only cross-entropy)."""
 from __future__ import annotations
 
 import torch

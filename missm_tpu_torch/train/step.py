@@ -1,11 +1,171 @@
-"""The eval step, after missm_tpu/train/step.py::make_eval_step."""
+"""The train and eval steps, after missm_tpu/train/step.py.
+
+The train step takes the JAX package's semantics with PyTorch's means:
+frozen leaves get `requires_grad=False`, so autograd never computes their
+weight gradients (the JAX package leaves them out of the differentiated
+partition), and the optimizer is `torch.optim.Adam`, whose L2 weight decay
+added to the gradient and bias-corrected moments are optax's
+`add_decayed_weights` + `scale_by_adam`. Unlike the JAX step, which returns
+new arrays, this one updates the param tensors and the optimizer state in
+place: the returned state holds the same tensors.
+"""
 from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
 
 import torch
 
 from ..core.device import resolve_device
-from ..models.finetune import ModelConfig, model_forward
-from .losses import per_sample_cross_entropy
+from ..models.finetune import ModelConfig, model_forward, tree_map
+from .losses import cross_entropy, per_sample_cross_entropy
+from .trainability import TRAIN, leaves, param_labels
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Any
+    opt_state: Any      # the optimizer's per-parameter state (tx.state)
+    teacher_fusion: Any  # None unless MTD_stu / KL_stu (not ported yet)
+    step: int
+
+
+def partition_trainable(params, cfg: ModelConfig):
+    """(treedef, trainable, frozen): `treedef` is the params' structure,
+    `trainable` and `frozen` are flat leaf lists with None in the other
+    side's slots. Sets requires_grad on the trainable leaves only, so
+    autograd computes no gradient for a frozen one."""
+    labels = leaves(param_labels(params, cfg))
+    flat = leaves(params)
+    for p, label in zip(flat, labels):
+        p.requires_grad_(label == TRAIN)
+    trainable = [p if label == TRAIN else None
+                 for p, label in zip(flat, labels)]
+    frozen = [None if label == TRAIN else p for p, label in zip(flat, labels)]
+    return tree_map(lambda _: None, params), trainable, frozen
+
+
+def combine_params(treedef, trainable, frozen):
+    flat = iter([f if t is None else t for t, f in zip(trainable, frozen)])
+    return tree_map(lambda _: next(flat), treedef)
+
+
+def make_optimizer(params, cfg: ModelConfig, *, b1=0.9, b2=0.999, eps=1e-8,
+                   weight_decay: float = 0.0):
+    """Adam over the trainable leaves only (the reference's
+    `Adam(filter(lambda p: p.requires_grad, ...))`). The learning rate is
+    set by each step from its `lr` argument."""
+    _, trainable, _ = partition_trainable(params, cfg)
+    return torch.optim.Adam([p for p in trainable if p is not None], lr=0.0,
+                            betas=(b1, b2), eps=eps,
+                            weight_decay=weight_decay)
+
+
+def init_train_state(params, cfg: ModelConfig, *, weight_decay: float = 0.0,
+                     teacher_fusion=None):
+    """(TrainState, tx) with tx the torch.optim.Adam of make_optimizer."""
+    tx = make_optimizer(params, cfg, weight_decay=weight_decay)
+    return TrainState(params=params, opt_state=tx.state,
+                      teacher_fusion=teacher_fusion, step=0), tx
+
+
+def compute_loss(params, teacher_fusion, cfg: ModelConfig, data, labels,
+                 missing_index, generator, valid=None, *, device="cuda"):
+    """(loss, logits): cross-entropy, masked to the `valid` rows (a boolean
+    [B] mask of rows a fixed-shape batcher did not pad in) when given. The
+    distillation losses of MTD_stu, KL_stu and self_distill wait for their
+    fusion heads."""
+    ft = cfg.fusion.fusion_type
+    if ft in ("MTD_stu", "KL_stu", "self_distill"):
+        raise NotImplementedError(f"the {ft} loss is not ported yet")
+    logits, _ = model_forward(params, cfg, data, missing_index, train=True,
+                              generator=generator, device=device)
+    labels = torch.as_tensor(labels, device=logits.device)
+    if valid is None:
+        return cross_entropy(logits, labels), logits
+    nll = per_sample_cross_entropy(logits, labels)
+    w = torch.as_tensor(valid, device=logits.device).to(nll.dtype)
+    return (nll * w).sum() / torch.clamp(w.sum(), min=1.0), logits
+
+
+def _rows(data, sl):
+    return {k: (_rows(v, sl) if isinstance(v, Mapping) else v[sl])
+            for k, v in data.items()}
+
+
+def make_train_step(cfg: ModelConfig, tx, accum_steps: int = 1, *,
+                    device="cuda"):
+    """Returns step(state, data, labels, missing_index, lr, generator[,
+    valid]) -> (state, {"loss": loss}), run on `device` (params must already
+    be there; data, labels and masks may be numpy arrays; `generator` feeds
+    the head's dropout and lies on `device`).
+
+    accum_steps = A > 1 splits the batch into A equal microbatches, run one
+    after another, each drawing its dropout from `generator` in turn, and
+    takes one Adam update. Each microbatch's loss is a mean over its valid
+    rows; it is weighted by that row count over the total, so the step
+    equals the full-batch masked mean (missm_tpu/train/step.py:185-205). A
+    batch that A does not divide raises."""
+    dev = resolve_device(device)
+    if cfg.fusion.fusion_type in ("MTD_stu", "KL_stu"):
+        raise NotImplementedError("the EMA teacher is not ported yet")
+
+    def step_fn(state: TrainState, data, labels, missing_index, lr,
+                generator, valid=None):
+        treedef, trainable, frozen = partition_trainable(state.params, cfg)
+        params = combine_params(treedef, trainable, frozen)
+        train = [p for p in trainable if p is not None]
+        labels = torch.as_tensor(labels, device=dev)
+        missing_index = torch.as_tensor(missing_index, device=dev)
+        if valid is not None:
+            valid = torch.as_tensor(valid, device=dev)
+        tx.zero_grad(set_to_none=True)
+
+        if accum_steps == 1:
+            loss, _ = compute_loss(params, state.teacher_fusion, cfg, data,
+                                   labels, missing_index, generator, valid,
+                                   device=dev)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            A = accum_steps
+            if labels.shape[0] % A:
+                raise ValueError(f"batch {labels.shape[0]} not divisible by "
+                                 f"accum_steps {A}")
+            h = labels.shape[0] // A
+            if valid is None:
+                valid = torch.ones(labels.shape[0], dtype=torch.bool,
+                                   device=dev)
+            l_sum = torch.zeros((), device=dev)
+            w_sum = torch.zeros((), device=dev)
+            for i in range(A):
+                sl = slice(i * h, (i + 1) * h)
+                w = valid[sl].sum().float()
+                loss, _ = compute_loss(params, state.teacher_fusion, cfg,
+                                       _rows(data, sl), labels[sl],
+                                       missing_index[sl], generator,
+                                       valid[sl], device=dev)
+                (w * loss).backward()
+                l_sum = l_sum + w * loss.detach()
+                w_sum = w_sum + w
+            denom = torch.clamp(w_sum, min=1.0)
+            for p in train:
+                if p.grad is not None:
+                    p.grad.div_(denom)
+            loss = l_sum / denom
+
+        # optax updates every trainable leaf, a zero gradient included
+        for p in train:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        for group in tx.param_groups:
+            group["lr"] = lr
+        tx.step()
+        return TrainState(params=state.params, opt_state=tx.state,
+                          teacher_fusion=state.teacher_fusion,
+                          step=state.step + 1), {"loss": loss}
+
+    return step_fn
 
 
 def make_eval_step(cfg: ModelConfig, *, device="cuda"):

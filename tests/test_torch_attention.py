@@ -4,24 +4,29 @@ JAX package.
 On the CPU the port's kernel wrappers compute their plain versions; these
 are held against the Pallas kernels they replace, run in interpret mode
 (missm_tpu.kernels.flash_attention.fused_attention_cls for K1,
-fused_attention(causal=True, kbias=...) for K2), and the port's
-multi_head_attention against the JAX one (einsum branch on the CPU). All in
-f32 with the tolerances of tests/test_flash_attention.py. The kernels
-themselves are held against the plain versions on the card in
-tests/test_torch_cuda.py.
+fused_attention(causal=True, kbias=...) for K2, fused_attention_cls_bwd for
+K3), the causal backward against the JAX package's einsum gradient, and the
+port's multi_head_attention, forward and gradients, against the JAX one
+(einsum branch on the CPU). All in f32 with the tolerances of
+tests/test_flash_attention.py. The kernels themselves are held against the
+plain versions on the card in tests/test_torch_cuda.py.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from missm_tpu.kernels import flash_attention as jfa
 from missm_tpu.kernels.flash_attention import (fused_attention,
-                                               fused_attention_cls)
+                                               fused_attention_cls,
+                                               fused_attention_cls_bwd)
 from missm_tpu.ops import attention as jattn
 from missm_tpu_torch.kernels import attention as kernels
 from missm_tpu_torch.ops import attention as tattn
 
 ATOL, RTOL = 2e-5, 1e-4
+BWD_ATOL, BWD_RTOL = 2e-4, 1e-3  # tests/test_flash_attention.py's backward
 NEG = np.finfo(np.float32).min
 
 
@@ -71,6 +76,97 @@ def test_causal_attention_plain_matches_causal_kernel(rng, n, with_pad):
                                rtol=RTOL)
 
 
+@pytest.mark.parametrize("n,heads", [(129, 2), (257, 4)])
+def test_attention_bwd_plain_matches_cls_split_bwd_kernel(rng, n, heads):
+    """K3: the TPU backward returns the K/V gradients split into the CLS row
+    and the rest; the port's come whole."""
+    q, k, v, g = _qkv(rng, 2, n, heads * 64) + [
+        rng.standard_normal((2, n, heads * 64)).astype(np.float32)]
+    dq, dkc, dkm, dvc, dvm = fused_attention_cls_bwd(
+        *(jnp.asarray(a) for a in (q, k[:, :1], k[:, 1:], v[:, :1], v[:, 1:],
+                                   g)), heads, interpret=True)
+    want = (dq, np.concatenate([dkc, dkm], 1), np.concatenate([dvc, dvm], 1))
+    got = kernels.attention_bwd_plain(*(torch.from_numpy(a)
+                                        for a in (q, k, v, g)), heads)
+    for name, x, w in zip("qkv", got, want):
+        np.testing.assert_allclose(x.numpy(), np.asarray(w), atol=BWD_ATOL,
+                                   rtol=BWD_RTOL, err_msg=f"d{name}")
+
+
+def _jax_causal_attention(q, k, v, kbias, heads):
+    """The JAX package's einsum path (ops/attention.py:107-126) for causal
+    attention with the key bias."""
+    B, N, D = q.shape
+    hd = D // heads
+    bias = jattn.causal_bias(N) + kbias[:, :, None, :]
+    s = jnp.einsum("bqhd,bkhd->bhqk", (q * hd ** -0.5).reshape(B, N, heads, hd),
+                   k.reshape(B, N, heads, hd)) + bias
+    p = jax.nn.softmax(s, axis=-1)
+    return jnp.einsum("bhqk,bkhd->bqhd", p,
+                      v.reshape(B, N, heads, hd)).reshape(B, N, D)
+
+
+@pytest.mark.parametrize("with_pad", [False, True])
+def test_causal_bwd_plain_matches_jax(rng, with_pad):
+    """K2(a)'s plain backward, key-bias gradient included, against jax.vjp
+    of the einsum path and the JAX package's own VJP of the causal kernel
+    (flash_attention._fca_bwd)."""
+    heads, n = 2, 77
+    q, k, v = _qkv(rng, 3, n, heads * 64)
+    g = rng.standard_normal(q.shape).astype(np.float32)
+    kb = _padding_bias(rng, 3, n) if with_pad else np.zeros((3, 1, n),
+                                                            np.float32)
+    _, vjp = jax.vjp(lambda *a: _jax_causal_attention(*a, heads),
+                     *(jnp.asarray(a) for a in (q, k, v, kb)))
+    want = vjp(jnp.asarray(g))
+    own = jfa._fca_bwd(heads, tuple(jnp.asarray(a) for a in (q, k, v, kb)),
+                       jnp.asarray(g))
+    got = kernels.causal_attention_bwd_plain(
+        *(torch.from_numpy(a) for a in (q, k, v, kb, g)), heads)
+    for name, x, w, o in zip(("dq", "dk", "dv", "dkbias"), got, want, own):
+        np.testing.assert_allclose(x.numpy(), np.asarray(w), atol=BWD_ATOL,
+                                   rtol=BWD_RTOL, err_msg=name)
+        np.testing.assert_allclose(x.numpy(), np.asarray(o), atol=BWD_ATOL,
+                                   rtol=BWD_RTOL, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_cpu_wrappers_differentiate_as_the_plain_versions(rng, causal):
+    """On CPU tensors the wrappers are the plain versions under autograd, and
+    the plain backwards equal autograd of the plain forward."""
+    heads = 2
+    arrays = _qkv(rng, 2, 33, heads * 16) + [_padding_bias(rng, 2, 33)]
+    g = torch.from_numpy(rng.standard_normal((2, 33, 32)).astype(np.float32))
+
+    def grads(fn):
+        t = [torch.from_numpy(a).requires_grad_() for a in arrays]
+        if causal:
+            out = fn(*t, causal=True)
+            return torch.autograd.grad(out, t, g)
+        return torch.autograd.grad(fn(*t[:3]), t[:3], g)
+
+    def wrapper(q, k, v, kb=None, causal=False):
+        if causal:
+            return kernels.causal_attention(q, k, v, kb, heads)
+        return kernels.attention(q, k, v, heads)
+
+    def plain(q, k, v, kb=None, causal=False):
+        return kernels.attention_plain(q, k, v, heads, causal=causal,
+                                       kbias=kb)
+
+    kernels.reset_launches()
+    got, want = grads(wrapper), grads(plain)
+    assert sum(kernels.LAUNCHES.values()) == 0
+    t = [torch.from_numpy(a) for a in arrays]
+    if causal:
+        bwd = kernels.causal_attention_bwd_plain(*t, g, heads)
+    else:
+        bwd = kernels.attention_bwd_plain(*t[:3], g, heads)
+    for x, w, b in zip(got, want, bwd):
+        torch.testing.assert_close(x, w, atol=0, rtol=0)
+        torch.testing.assert_close(b, w, atol=ATOL, rtol=RTOL)
+
+
 def _attn_params(rng, d, lora_r):
     p = {}
     for name in ("q", "k", "v", "out"):
@@ -84,9 +180,7 @@ def _attn_params(rng, d, lora_r):
     return p
 
 
-@pytest.mark.parametrize("case", ["bias_free", "causal_key_bias",
-                                  "dense_bias"])
-def test_multi_head_attention_matches_jax(rng, case):
+def _mha_case(rng, case):
     b, n, heads, hd = 2, 17, 2, 16
     d = heads * hd
     params = _attn_params(rng, d, lora_r=2 if case == "bias_free" else 0)
@@ -98,22 +192,56 @@ def test_multi_head_attention_matches_jax(rng, case):
         kw = dict(causal=True, key_bias=_padding_bias(rng, b, n))
     else:
         kw = dict(bias=rng.standard_normal((b, 1, n, n)).astype(np.float32))
-
-    def tree(conv):
-        return {m: {k: conv(a) for k, a in p.items()}
-                for m, p in params.items()}
-
     jkw = {k: (jnp.asarray(a) if isinstance(a, np.ndarray) else a)
            for k, a in kw.items()}
     tkw = {k: (torch.from_numpy(a) if isinstance(a, np.ndarray) else a)
            for k, a in kw.items()}
-    ref = jattn.multi_head_attention(tree(jnp.asarray), jnp.asarray(x),
-                                     num_heads=heads, **jkw)
-    got = tattn.multi_head_attention(tree(torch.from_numpy),
+    return params, x, heads, jkw, tkw
+
+
+def _tree(params, conv):
+    return {m: {k: conv(a) for k, a in p.items()} for m, p in params.items()}
+
+
+@pytest.mark.parametrize("case", ["bias_free", "causal_key_bias",
+                                  "dense_bias"])
+def test_multi_head_attention_matches_jax(rng, case):
+    params, x, heads, jkw, tkw = _mha_case(rng, case)
+    ref = jattn.multi_head_attention(_tree(params, jnp.asarray),
+                                     jnp.asarray(x), num_heads=heads, **jkw)
+    got = tattn.multi_head_attention(_tree(params, torch.from_numpy),
                                      torch.from_numpy(x), num_heads=heads,
                                      **tkw)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL,
                                rtol=RTOL)
+
+
+@pytest.mark.parametrize("case", ["bias_free", "causal_key_bias",
+                                  "dense_bias"])
+def test_multi_head_attention_grads_match_jax(rng, case):
+    """Gradients of x and of every projection param (LoRA factors
+    included) against jax.grad of the JAX einsum path: each branch of the
+    port's routing differentiates."""
+    params, x, heads, jkw, tkw = _mha_case(rng, case)
+    cot = rng.standard_normal(x.shape).astype(np.float32)
+
+    def jloss(p, x):
+        return (jattn.multi_head_attention(p, x, num_heads=heads, **jkw)
+                * cot).sum()
+
+    jp, jx = jax.grad(jloss, argnums=(0, 1))(_tree(params, jnp.asarray),
+                                             jnp.asarray(x))
+    tp = _tree(params, lambda a: torch.from_numpy(a).requires_grad_())
+    tx = torch.from_numpy(x).requires_grad_()
+    out = tattn.multi_head_attention(tp, tx, num_heads=heads, **tkw)
+    (out * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jx),
+                               atol=BWD_ATOL, rtol=BWD_RTOL)
+    for m, p in tp.items():
+        for k, t in p.items():
+            np.testing.assert_allclose(t.grad.numpy(), np.asarray(jp[m][k]),
+                                       atol=BWD_ATOL, rtol=BWD_RTOL,
+                                       err_msg=f"{m}/{k}")
 
 
 def test_mask_helpers_match_jax(rng):
@@ -126,8 +254,11 @@ def test_mask_helpers_match_jax(rng):
 
 
 def test_wrappers_on_cpu_use_the_plain_version_and_count_nothing(rng):
-    q, k, v = (torch.from_numpy(a) for a in _qkv(rng, 1, 8, 32))
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _qkv(rng, 1, 8, 32))
     kernels.reset_launches()
-    kernels.attention(q, k, v, 2)
-    kernels.causal_attention(q, k, v, None, 2)
-    assert kernels.LAUNCHES == {"attention": 0, "causal_attention": 0}
+    out = kernels.attention(q, k, v, 2) + kernels.causal_attention(
+        q, k, v, None, 2)
+    out.sum().backward()
+    assert kernels.LAUNCHES == {"attention": 0, "attention_bwd": 0,
+                                "causal_attention": 0}

@@ -13,6 +13,8 @@ from missm_tpu_torch.core.config import tiny_tower
 from missm_tpu_torch.kernels import attention as kernels
 from missm_tpu_torch.models import finetune
 from missm_tpu_torch.models.fusion import FusionConfig
+from missm_tpu_torch.train.step import init_train_state, make_train_step
+from missm_tpu_torch.train.trainability import leaves
 
 pytestmark = pytest.mark.cuda
 
@@ -21,6 +23,13 @@ pytestmark = pytest.mark.cuda
 # unnormalised exponentials, the plain version the probabilities) and the
 # output to bf16, whose ulp is 2^-7 of the value at most.
 TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 2 ** -7)}
+# Gradients, as ||got - ref|| / ||ref|| per tensor. f32: summation order
+# only. bf16: the kernel rounds P and dS to bf16 as product operands and
+# takes D = rowsum(dO O) from the bf16 output, where the plain version keeps
+# f32 throughout; each output is rounded to bf16 (2^-9 relative).
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+SHAPES = [(2, 257, 16, 64), (3, 77, 12, 64), (2, 16, 2, 16), (2, 33, 2, 128),
+          (2, 70, 3, 48)]
 
 
 @pytest.fixture
@@ -41,10 +50,12 @@ def _inputs(gen, b, n, heads, hd, dtype, pad):
     return q, k, v, kb
 
 
+def _rel(got, ref):
+    return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,n,heads,hd", [(2, 257, 16, 64), (3, 77, 12, 64),
-                                          (2, 16, 2, 16), (2, 33, 2, 128),
-                                          (2, 70, 3, 48)])
+@pytest.mark.parametrize("b,n,heads,hd", SHAPES)
 @pytest.mark.parametrize("mode", ["attention", "causal", "causal_pad"])
 def test_kernel_matches_plain(cuda, dtype, b, n, heads, hd, mode):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -99,6 +110,121 @@ def test_tiny_model_on_the_card_matches_the_cpu(cuda, monkeypatch):
     card = finetune.tree_map(lambda t: t.to(cuda), params)
     kernels.reset_launches()
     got, _ = finetune.model_forward(card, cfg, data, missing, device=cuda)
-    assert kernels.LAUNCHES == {"attention": 2, "causal_attention": 2}
+    assert kernels.LAUNCHES == {"attention": 2, "attention_bwd": 0,
+                                "causal_attention": 2}
     torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,heads,hd", SHAPES)
+def test_backward_kernel_matches_plain(cuda, dtype, b, n, heads, hd):
+    """K3 against attention_bwd_plain, from the forward kernel's output and
+    log-sum-exp."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, g = (torch.randn(b, n, heads * hd, generator=gen, device=cuda)
+                  .to(dtype) for _ in range(4))
+    out, lse = kernels._launch(q, k, v, None, heads, causal=False,
+                               want_lse=True)
+    got = kernels._launch_bwd(q, k, v, out, lse, g, heads)
+    ref = kernels.attention_bwd_plain(q, k, v, g, heads)
+    torch.cuda.synchronize()
+    for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+        assert x.dtype == dtype and torch.isfinite(x).all(), name
+        assert _rel(x, r) <= GRAD_TOL[dtype], (name, _rel(x, r))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["attention", "causal_pad"])
+def test_wrappers_carry_gradients(cuda, dtype, mode):
+    """Autograd through each CUDA wrapper (K1 forward + K3 backward, K2
+    forward + plain backward) against autograd of the plain version: the
+    kernels' outputs keep their grad_fn."""
+    b, n, heads, hd = 2, 77, 4, 64
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v, kb = _inputs(gen, b, n, heads, hd, dtype, mode == "causal_pad")
+    g = torch.randn(b, n, heads * hd, generator=gen, device=cuda).to(dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    if kb is not None:
+        leaves.append(kb.clone().requires_grad_())
+
+    def grads(fn):
+        t = [x.detach().clone().requires_grad_() for x in leaves]
+        return torch.autograd.grad(fn(*t), t, g)
+
+    if mode == "attention":
+        run = lambda q, k, v: kernels.attention(q, k, v, heads)  # noqa: E731
+        plain = lambda q, k, v: kernels.attention_plain(  # noqa: E731
+            q, k, v, heads)
+    else:
+        run = lambda q, k, v, kb: kernels.causal_attention(  # noqa: E731
+            q, k, v, kb, heads)
+        plain = lambda q, k, v, kb: kernels.attention_plain(  # noqa: E731
+            q, k, v, heads, causal=True, kbias=kb)
+    kernels.reset_launches()
+    got = grads(run)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {
+        "attention": int(mode == "attention"),
+        "attention_bwd": int(mode == "attention"),
+        "causal_attention": int(mode != "attention")}
+    want = grads(plain)
+    for i, (x, w) in enumerate(zip(got, want)):
+        assert x is not None and x.abs().sum() > 0, i
+        assert _rel(x, w) <= GRAD_TOL[dtype], (i, _rel(x, w))
+
+
+def test_backward_rejects_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros(2, 8, 64, device=cuda)
+    lse = torch.zeros(2, 2, 8, device=cuda)
+    with pytest.raises(ValueError):
+        kernels._launch_bwd(q, q, q, q, lse, q.bfloat16(), 2)   # g dtype
+    with pytest.raises(ValueError):
+        kernels._launch_bwd(q, q, q, q, lse[:, :1], q, 2)       # lse shape
+
+
+def _tiny_train(device, monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = finetune.ModelConfig(
+        towers=(("image", tiny_tower("image")),),
+        fusion=FusionConfig(fusion_type="sum",
+                            modality_types=("language", "image"),
+                            output_dims=3, feature_dims=24, fusion_dim=16,
+                            dropout_prob=0.0))
+    params = finetune.init_model_params(cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    for block in params["encoder"]["image"]["vision"]["blocks"]:
+        for proj in block["attn"].values():
+            proj["lora_b"].normal_(0.0, 0.05, generator=gen)
+    params = finetune.tree_map(lambda t: t.to(device), params)
+    state, tx = init_train_state(params, cfg)
+    step = make_train_step(cfg, tx, accum_steps=2, device=device)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(1, 98, size=(4, 16)).astype(np.int32)
+    ids[:, 9] = 98
+    data = {"language": {"input_ids": ids,
+                         "attention_mask": (np.arange(16) < 12)[None].repeat(
+                             4, 0).astype(np.int32)},
+            "image": rng.standard_normal((4, 3, 32, 32)).astype(np.float32)}
+    state, m = step(state, data, np.array([0, 1, 2, 0]),
+                    np.array([0, 1, 4, 0]), 1e-3,
+                    torch.Generator(device=device).manual_seed(0))
+    return float(m["loss"]), [t.grad.cpu() for t in leaves(params)
+                              if t.grad is not None]
+
+
+def test_tiny_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """One accum-2 step in f32: the card's loss and every trainable leaf's
+    gradient against the CPU's plain path, and the main path's launches."""
+    loss_cpu, grads_cpu = _tiny_train("cpu", monkeypatch)
+    kernels.reset_launches()
+    loss_gpu, grads_gpu = _tiny_train(cuda, monkeypatch)
+    torch.cuda.synchronize()
+    # 2 layers per tower, 2 microbatches
+    assert kernels.LAUNCHES == {"attention": 4, "attention_bwd": 4,
+                                "causal_attention": 4}
+    assert loss_gpu == pytest.approx(loss_cpu, rel=1e-5)
+    assert len(grads_gpu) == len(grads_cpu)
+    for i, (x, w) in enumerate(zip(grads_gpu, grads_cpu)):
+        assert _rel(x, w) <= 1e-4 or (w.norm() < 1e-8 and x.norm() < 1e-8), i
 

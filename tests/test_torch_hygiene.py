@@ -1,6 +1,7 @@
 """The port stands alone: importing it pulls in neither JAX nor the JAX
-package and builds nothing, and its entry points run on the card unless the
-caller asks for the CPU."""
+package and builds nothing, chip_smoke.py imports neither, and its entry
+points run on the card unless the caller asks for the CPU."""
+import ast
 import os
 import subprocess
 import sys
@@ -13,7 +14,8 @@ from missm_tpu_torch.compat.from_jax import from_jax
 from missm_tpu_torch.core.config import tiny_tower
 from missm_tpu_torch.models import finetune
 from missm_tpu_torch.models.fusion import FusionConfig
-from missm_tpu_torch.train.step import make_eval_step
+from missm_tpu_torch.train.step import (init_train_state, make_eval_step,
+                                        make_train_step)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -38,7 +40,20 @@ def test_port_imports_no_jax_and_no_jax_package():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 15  # every module was imported
+    assert int(proc.stdout.strip()) >= 17  # every module was imported
+
+
+def test_chip_smoke_imports_no_jax_and_no_jax_package():
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module or "")
+    roots = {n.split(".")[0] for n in names}
+    assert "missm_tpu_torch" in roots
+    assert not roots & {"jax", "jaxlib", "missm_tpu"}, sorted(names)
 
 
 def _cfg():
@@ -50,7 +65,8 @@ def _cfg():
 
 
 @pytest.mark.parametrize("entry", ["init_model_params", "make_eval_step",
-                                   "model_forward", "from_jax"])
+                                   "make_train_step", "model_forward",
+                                   "from_jax"])
 def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch,
                                                                 entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -61,6 +77,8 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch,
     calls = {
         "init_model_params": lambda: finetune.init_model_params(cfg),
         "make_eval_step": lambda: make_eval_step(cfg),
+        "make_train_step": lambda: make_train_step(
+            cfg, init_train_state(params, cfg)[1]),
         "model_forward": lambda: finetune.model_forward(
             params, cfg, data, np.zeros(2, np.int32)),
         "from_jax": lambda: from_jax({"w": np.zeros(3, np.float32)}),
