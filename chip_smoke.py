@@ -6,12 +6,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
   1. device   - needs a CUDA GPU; prints its name and power limit.
   2. build    - compiles every csrc/*.cu with nvcc (one process per source,
                 all started together).
-  3. kernels  - each kernel at the shapes of the flagship steps, against its
-                plain PyTorch version in f32 and bf16; times the kernel, the
-                plain version and one PyTorch library call doing the same
-                work (CUDA events, median of 7 runs of 20 launches, inputs
-                rotated through enough copies to miss the 50 MB L2), and
-                works out the least time the card could take.
+  3. kernels  - each kernel through its wrapper, at the shapes and template
+                variants each flagship step gives it (eval: K1 and K2 with
+                the key bias at B=64; train: K1 writing the log-sum-exp, its
+                K3 backward through autograd and K2 without a key bias at
+                B=16), against its plain PyTorch version in f32 and bf16;
+                times the kernel, the plain version and one PyTorch library
+                call doing the same work (CUDA events, median of 7 runs of
+                20 launches, inputs rotated through enough copies to miss
+                the 50 MB L2), and works out the least time the card could
+                take.
   4. eval     - the flagship eval step (LanguageBind ViT-L/14 image tower +
                 CLIP text tower + `sum` head, seeded random weights, bf16
                 encoder, B=64, missing codes rotating over {0, 1, 4}) through
@@ -117,10 +121,55 @@ def text_batch(rng, batch, vary_length):
     return ids, mask
 
 
+DTYPES = ((torch.float32, "f32"), (torch.bfloat16, "bf16"))
+
+
+def forward_check(dev, gen, label, b, n, heads, run, plain, recorded):
+    """A forward wrapper against its plain version on seeded [b, n, heads*64]
+    inputs, in f32 and bf16: {"max_abs_err_f32": .., "max_abs_err_bf16": ..}.
+    With `recorded` the inputs require grad, so autograd records the call as
+    the train step's does (K1 then writes the log-sum-exp)."""
+    errs = {"shape": f"B={b} N={n} H={heads} hd=64", "recorded": recorded}
+    for dtype, tag in DTYPES:
+        q, k, v = (torch.randn(b, n, heads * 64, generator=gen, device=dev)
+                   .to(dtype).requires_grad_(recorded) for _ in range(3))
+        got = run(q, k, v)
+        with torch.no_grad():
+            ref = plain(q, k, v)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        atol, rtol = TOL[dtype]
+        bad = err > atol + rtol * ref.float().abs()
+        if (bad.any() or not torch.isfinite(got).all()
+                or recorded != (got.grad_fn is not None)):
+            raise AssertionError(f"{label} {tag}: kernel disagrees with the "
+                                 f"plain version, max abs err "
+                                 f"{err.max().item():.3e}, grad_fn "
+                                 f"{got.grad_fn}")
+        errs[f"max_abs_err_{tag}"] = err.max().item()
+    print(f"check {label} [{errs['shape']}, recorded={recorded}]: max abs err "
+          f"f32 {errs['max_abs_err_f32']:.2e} bf16 "
+          f"{errs['max_abs_err_bf16']:.2e}", flush=True)
+    return errs
+
+
+def summarise_checks(row):
+    """The row's errors per type: the largest over its paths' checks."""
+    for _, tag in DTYPES:
+        row[f"max_abs_err_{tag}"] = max(c[f"max_abs_err_{tag}"]
+                                        for c in row["checks"].values())
+    row["max_abs_err"] = row["max_abs_err_bf16"]
+
+
 def kernel_phase(dev, rng):
+    """Every kernel at the shapes and template variants each path gives it:
+    eval K1 (no log-sum-exp) and K2 with the key bias at B=64; train K1
+    (recorded, writing the log-sum-exp), K3 through autograd and K2 causal
+    without a key bias at B=16. Times each at its main-path shape."""
     from missm_tpu_torch.kernels import attention as K
 
     neg = torch.finfo(torch.float32).min
+    b_train = B // ACCUM
     _, mask = text_batch(rng, B, vary_length=True)
     kbias = torch.where(torch.as_tensor(mask, device=dev)[:, None, :] == 0,
                         neg, 0.0).float().contiguous()
@@ -135,7 +184,12 @@ def kernel_phase(dev, rng):
                       "(fused_attention, causal=True, kbias)",
              run=lambda q, k, v: K.causal_attention(q, k, v, kbias, 12),
              plain=lambda q, k, v: K.attention_plain(
-                 q, k, v, 12, causal=True, kbias=kbias)),
+                 q, k, v, 12, causal=True, kbias=kbias),
+             # the train batch has ids without a mask: causal, no key bias
+             train=dict(
+                 run=lambda q, k, v: K.causal_attention(q, k, v, None, 12),
+                 plain=lambda q, k, v: K.attention_plain(q, k, v, 12,
+                                                         causal=True))),
     ]
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
@@ -145,23 +199,16 @@ def kernel_phase(dev, rng):
         row = {"name": s["name"], "route": "cuda",
                "source": "missm_tpu_torch/csrc/attention.cu",
                "replaces": s["replaces"],
-               "shape": f"B={B} N={n} H={heads} hd={hd}"}
-        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-            q, k, v = (torch.randn(B, n, d, generator=gen, device=dev)
-                       .to(dtype) for _ in range(3))
-            got, ref = s["run"](q, k, v), s["plain"](q, k, v)
-            torch.cuda.synchronize()
-            err = (got.float() - ref.float()).abs()
-            atol, rtol = TOL[dtype]
-            bad = err > atol + rtol * ref.float().abs()
-            if bad.any() or not torch.isfinite(got).all():
-                raise AssertionError(f"{s['name']} {tag}: kernel disagrees "
-                                     f"with the plain version, max abs err "
-                                     f"{err.max().item():.3e}")
-            row[f"max_abs_err_{tag}"] = err.max().item()
-        row["max_abs_err"] = row["max_abs_err_bf16"]
+               "shape": f"B={B} N={n} H={heads} hd={hd}",
+               "checks": {"eval": forward_check(
+                   dev, gen, f"{s['name']} eval", B, n, heads, s["run"],
+                   s["plain"], recorded=False)}}
+        if "train" in s:
+            row["checks"]["train"] = forward_check(
+                dev, gen, f"{s['name']} train", b_train, n, heads,
+                s["train"]["run"], s["train"]["plain"], recorded=True)
 
-        # timing, bf16 (the main path's type)
+        # timing, bf16 (the main path's type), at the eval step's shape
         io_bytes = 4 * B * n * d * 2 + (0 if s["kbias"] is None else B * n * 4)
         copies = max(1, math.ceil(2 * L2_BYTES / io_bytes))
         sets = [[torch.randn(B, n, d, generator=gen, device=dev)
@@ -195,62 +242,92 @@ def kernel_phase(dev, rng):
         t_ops = flops / BF16_FLOP_PER_S * 1e3
         row["bound_ms"] = max(t_bytes, t_ops)
         row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"kernel {s['name']} [{row['shape']}]: err f32 "
-              f"{row['max_abs_err_f32']:.2e} bf16 {row['max_abs_err_bf16']:.2e}"
-              f" | bf16 kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}"
-              f" ms, sdpa {row['library_ms']:.4f} ms, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+        print(f"kernel {s['name']} [{row['shape']}]: bf16 kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})", flush=True)
         rows.append(row)
-    rows.append(backward_row(dev, gen))
+    rows.append(backward_row(dev, gen, rows[0]))
+    for row in rows:
+        summarise_checks(row)
     return rows
 
 
-def backward_row(dev, gen):
-    """K3 at the train step's shape: one microbatch of 16 images."""
+def backward_row(dev, gen, k1_row):
+    """K3 at the train step's shape, one microbatch of 16 images. Its check
+    goes through the wrappers as the train step does: K.attention on inputs
+    that require grad (K1 writing the log-sum-exp, checked into K1's train
+    row), then torch.autograd.grad, which launches K3."""
     from missm_tpu_torch.kernels import attention as K
 
     b, n, heads, hd = B // ACCUM, 257, 16, 64
     d = heads * hd
+    shape = f"B={b} N={n} H={heads} hd={hd}"
     row = {"name": "attention_bwd", "route": "cuda",
            "source": "missm_tpu_torch/csrc/attention_bwd.cu",
            "replaces": "missm_tpu/kernels/flash_attention.py:512 "
                        "(fused_attention_cls_bwd)",
-           "shape": f"B={b} N={n} H={heads} hd={hd}"}
+           "shape": shape, "checks": {"train": {"shape": shape}}}
+    fwd = k1_row["checks"]["train"] = {"shape": shape, "recorded": True}
+    check = row["checks"]["train"]
 
-    def inputs(dtype):
+    for dtype, tag in DTYPES:
         q, k, v, g = (torch.randn(b, n, d, generator=gen, device=dev)
                       .to(dtype) for _ in range(4))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = dict(K.LAUNCHES)
+        out = K.attention(*leaves, heads)
+        got = torch.autograd.grad(out, leaves, g)
+        torch.cuda.synchronize()
+        via = {name: K.LAUNCHES[name] - before[name] for name in before}
+        ref_out = K.attention_plain(q, k, v, heads)
+        ref = K.attention_bwd_plain(q, k, v, g, heads)
+
+        err = (out.detach().float() - ref_out.float()).abs()
+        atol, rtol = TOL[dtype]
+        if (err > atol + rtol * ref_out.float().abs()).any():
+            raise AssertionError(f"attention train {tag}: kernel disagrees "
+                                 f"with the plain version, max abs err "
+                                 f"{err.max().item():.3e}")
+        fwd[f"max_abs_err_{tag}"] = err.max().item()
+
+        rel = max(((x.float() - r.float()).norm() / r.float().norm()).item()
+                  for x, r in zip(got, ref))
+        abs_err = max((x.float() - r.float()).abs().max().item()
+                      for x, r in zip(got, ref))
+        if not (rel <= GRAD_TOL[dtype] and via == {
+                "attention": 1, "attention_bwd": 1, "causal_attention": 0}
+                and all(torch.isfinite(x).all() for x in got)):
+            raise AssertionError(f"attention_bwd {tag}: kernel disagrees with "
+                                 f"the plain version, relative error {rel:.3e}"
+                                 f" (limit {GRAD_TOL[dtype]}), launches {via}")
+        check[f"max_abs_err_{tag}"] = abs_err
+        check[f"rel_err_{tag}"] = rel
+    print(f"check attention train [{shape}, recorded=True]: max abs err f32 "
+          f"{fwd['max_abs_err_f32']:.2e} bf16 {fwd['max_abs_err_bf16']:.2e}",
+          flush=True)
+
+    # timing, bf16. The function needs q, k, v and dO read and dq, dk, dv
+    # written; the saved O and log-sum-exp are extra reads of this design
+    # and not counted.
+    io_bytes = 7 * b * n * d * 2
+    copies = max(1, math.ceil(2 * L2_BYTES / io_bytes))
+
+    def inputs():
+        q, k, v, g = (torch.randn(b, n, d, generator=gen, device=dev)
+                      .to(torch.bfloat16) for _ in range(4))
         out, lse = K._launch(q, k, v, None, heads, causal=False,
                              want_lse=True)
         return q, k, v, out, lse, g
 
-    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        q, k, v, out, lse, g = inputs(dtype)
-        got = K._launch_bwd(q, k, v, out, lse, g, heads)
-        ref = K.attention_bwd_plain(q, k, v, g, heads)
-        torch.cuda.synchronize()
-        rel = max(((x.float() - r.float()).norm() / r.float().norm()).item()
-                  for x, r in zip(got, ref))
-        err = max((x.float() - r.float()).abs().max().item()
-                  for x, r in zip(got, ref))
-        if not (rel <= GRAD_TOL[dtype]
-                and all(torch.isfinite(x).all() for x in got)):
-            raise AssertionError(f"attention_bwd {tag}: kernel disagrees with "
-                                 f"the plain version, relative error {rel:.3e}"
-                                 f" (limit {GRAD_TOL[dtype]})")
-        row[f"max_abs_err_{tag}"] = err
-        row[f"rel_err_{tag}"] = rel
-    row["max_abs_err"] = row["max_abs_err_bf16"]
-
-    # timing, bf16: q, k, v, o, dO read, dq, dk, dv written, lse read
-    io_bytes = 8 * b * n * d * 2 + b * heads * n * 4
-    copies = max(1, math.ceil(2 * L2_BYTES / io_bytes))
-    sets = [inputs(torch.bfloat16) for _ in range(copies)]
+    sets = [inputs() for _ in range(copies)]
     cyc = itertools.cycle(sets)
+
     def plain():
         q, k, v, _, _, g = next(cyc)
         return K.attention_bwd_plain(q, k, v, g, heads)
 
+    # the kernel alone, from the forward's saved output and log-sum-exp
     row["ms"] = median_ms(lambda: K._launch_bwd(*next(cyc), heads))
     row["plain_ms"] = median_ms(plain)
 
@@ -276,12 +353,13 @@ def backward_row(dev, gen):
     t_ops = flops / BF16_FLOP_PER_S * 1e3
     row["bound_ms"] = max(t_bytes, t_ops)
     row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    print(f"kernel attention_bwd [{row['shape']}]: rel err f32 "
-          f"{row['rel_err_f32']:.2e} bf16 {row['rel_err_bf16']:.2e} (max abs "
-          f"{row['max_abs_err_f32']:.2e} / {row['max_abs_err_bf16']:.2e}) | "
-          f"bf16 kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-          f"sdpa backward {row['library_ms']:.4f} ms, bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    print(f"kernel attention_bwd [{shape}]: rel err f32 "
+          f"{check['rel_err_f32']:.2e} bf16 {check['rel_err_bf16']:.2e} (max "
+          f"abs {check['max_abs_err_f32']:.2e} / "
+          f"{check['max_abs_err_bf16']:.2e}) | bf16 kernel {row['ms']:.4f} "
+          f"ms, plain {row['plain_ms']:.4f} ms, sdpa backward "
+          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']})", flush=True)
     return row
 
 

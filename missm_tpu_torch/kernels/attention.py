@@ -126,9 +126,8 @@ def causal_attention_bwd_plain(q, k, v, kbias, g, num_heads: int):
 
 
 def _recorded(*tensors) -> bool:
-    """Whether autograd records this call. Only such a call goes through an
-    autograd.Function: its host cost is of the order of a K2 launch, and a
-    Function's needs_input_grad does not say whether grad mode is on."""
+    """Whether autograd records this call (a Function's needs_input_grad
+    does not say whether grad mode is on)."""
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
 
@@ -138,11 +137,7 @@ def attention(q, k, v, num_heads: int):
     Only a recorded call writes the log-sum-exp that K3 needs."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, num_heads)
-    if _recorded(q, k, v):
-        return _Attention.apply(q, k, v, num_heads)
-    out, _ = _launch(q, k, v, None, num_heads, causal=False)
-    LAUNCHES["attention"] += 1
-    return out
+    return _Attention.apply(q, k, v, num_heads, _recorded(q, k, v))
 
 
 def causal_attention(q, k, v, kbias, num_heads: int):
@@ -151,20 +146,17 @@ def causal_attention(q, k, v, kbias, num_heads: int):
     forward, plain PyTorch backward."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, num_heads, causal=True, kbias=kbias)
-    if _recorded(q, k, v, kbias):
-        return _CausalAttention.apply(q, k, v, kbias, num_heads)
-    out, _ = _launch(q, k, v, kbias, num_heads, causal=True)
-    LAUNCHES["causal_attention"] += 1
-    return out
+    return _CausalAttention.apply(q, k, v, kbias, num_heads)
 
 
 class _Attention(torch.autograd.Function):
-    """K1 forward (writing the per-row log-sum-exp), K3 backward."""
+    """K1 forward (writing the per-row log-sum-exp when `want_lse`), K3
+    backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, num_heads):
+    def forward(ctx, q, k, v, num_heads, want_lse):
         out, lse = _launch(q, k, v, None, num_heads, causal=False,
-                           want_lse=True)
+                           want_lse=want_lse)
         LAUNCHES["attention"] += 1
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.num_heads = num_heads
@@ -176,7 +168,7 @@ class _Attention(torch.autograd.Function):
         dq, dk, dv = _launch_bwd(q, k, v, out, lse, g.contiguous(),
                                  ctx.num_heads)
         LAUNCHES["attention_bwd"] += 1
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
 
 class _CausalAttention(torch.autograd.Function):
