@@ -7,10 +7,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
   2. build    - compiles every csrc/*.cu with nvcc (one process per source,
                 all started together).
   3. kernels  - each kernel through its wrapper, at the shapes and template
-                variants each flagship step gives it (eval: K1 and K2 with
-                the key bias at B=64; train: K1 writing the log-sum-exp, its
-                K3 backward through autograd and K2 without a key bias at
-                B=16), against its plain PyTorch version in f32 and bf16;
+                variants each step gives it (eval: K1 and K2(a) with the key
+                bias at B=64; train: K1 writing the log-sum-exp, its K3
+                backward through autograd and K2(a) without a key bias at
+                B=16; eval3: K2(a) without a key bias at B=16, K2(b) on the
+                audio tower's [16, 593] and K2(c) on the video tower's
+                temporal [16*257, 8]), against its plain PyTorch version in
+                f32 and bf16, each launch counted under its own name;
                 times the kernel, the plain version and one PyTorch library
                 call doing the same work (CUDA events, median of 7 runs of
                 20 launches, inputs rotated through enough copies to miss
@@ -31,10 +34,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 moved and the trainable ones did, and times samples/s. Then
                 holds the card's f32 gradients for 4 rows (LoRA B non-zero,
                 TF32 off) against the CPU's plain path.
-  6. summary  - a `{"kernels": [...]}` line, the card's name and power limit,
+  6. eval3    - bench.py's eval3 workload: the video+audio+language `sum` eval
+                step (LanguageBind video tower with temporal attention over
+                8 frames, audio tower on the 112x1036 grid, the audio
+                tower's text tower; seeded random weights, bf16 encoder,
+                B=16, video [16, 3, 8, 224, 224], audio [16, 3, 112, 1036],
+                ids without a mask, missing codes rotating over {0, 1, 2,
+                3}) through make_eval_step; checks that every step launched
+                K1 24 times (video spatial, [128, 257]), K2(b) 24 (audio,
+                [16, 593]), K2(c) 24 (temporal) and K2(a) 12, that the
+                outputs are finite and the probs sum to 1, and times
+                samples/s. Then holds the card's f32 logits for 2 rows
+                against the CPU's plain path.
+  7. summary  - a `{"kernels": [...]}` line, the card's name and power limit,
                 and as the last line {"ok": true, "device": {...}}.
---profile adds one torch.profiler-traced eval step and one traced train step
-and prints device time by kernel.
+--profile adds one torch.profiler-traced step of each of eval, train and
+eval3 and prints device time by kernel.
 """
 from __future__ import annotations
 
@@ -58,6 +73,8 @@ BF16_FLOP_PER_S = 989e12
 L2_BYTES = 50e6
 B = 64                      # the flagship batch (bench.py eval and train)
 ACCUM = 4                   # bench.py's train microbatches (4 x 16)
+B3 = 16                     # bench.py's eval3 batch
+FRAMES = 8                  # frames per video (languagebind_large("video"))
 LR = 1e-4                   # bench.py's train learning rate
 STEPS = 5
 TOL = {torch.float32: (1e-4, 0.0),      # summation order only
@@ -124,16 +141,22 @@ def text_batch(rng, batch, vary_length):
 DTYPES = ((torch.float32, "f32"), (torch.bfloat16, "bf16"))
 
 
-def forward_check(dev, gen, label, b, n, heads, run, plain, recorded):
+def forward_check(dev, gen, label, b, n, heads, run, plain, recorded,
+                  counter):
     """A forward wrapper against its plain version on seeded [b, n, heads*64]
     inputs, in f32 and bf16: {"max_abs_err_f32": .., "max_abs_err_bf16": ..}.
     With `recorded` the inputs require grad, so autograd records the call as
-    the train step's does (K1 then writes the log-sum-exp)."""
+    the train step's does (K1 then writes the log-sum-exp). Each call must
+    launch once, counted under `counter` and nowhere else."""
+    from missm_tpu_torch.kernels import attention as K
+
     errs = {"shape": f"B={b} N={n} H={heads} hd=64", "recorded": recorded}
     for dtype, tag in DTYPES:
         q, k, v = (torch.randn(b, n, heads * 64, generator=gen, device=dev)
                    .to(dtype).requires_grad_(recorded) for _ in range(3))
+        before = dict(K.LAUNCHES)
         got = run(q, k, v)
+        via = {name: K.LAUNCHES[name] - before[name] for name in before}
         with torch.no_grad():
             ref = plain(q, k, v)
         torch.cuda.synchronize()
@@ -141,11 +164,12 @@ def forward_check(dev, gen, label, b, n, heads, run, plain, recorded):
         atol, rtol = TOL[dtype]
         bad = err > atol + rtol * ref.float().abs()
         if (bad.any() or not torch.isfinite(got).all()
-                or recorded != (got.grad_fn is not None)):
+                or recorded != (got.grad_fn is not None)
+                or via != dict(dict.fromkeys(via, 0), **{counter: 1})):
             raise AssertionError(f"{label} {tag}: kernel disagrees with the "
                                  f"plain version, max abs err "
                                  f"{err.max().item():.3e}, grad_fn "
-                                 f"{got.grad_fn}")
+                                 f"{got.grad_fn}, launches {via}")
         errs[f"max_abs_err_{tag}"] = err.max().item()
     print(f"check {label} [{errs['shape']}, recorded={recorded}]: max abs err "
           f"f32 {errs['max_abs_err_f32']:.2e} bf16 "
@@ -163,9 +187,11 @@ def summarise_checks(row):
 
 def kernel_phase(dev, rng):
     """Every kernel at the shapes and template variants each path gives it:
-    eval K1 (no log-sum-exp) and K2 with the key bias at B=64; train K1
-    (recorded, writing the log-sum-exp), K3 through autograd and K2 causal
-    without a key bias at B=16. Times each at its main-path shape."""
+    eval K1 (no log-sum-exp) and K2(a) with the key bias at B=64; train K1
+    (recorded, writing the log-sum-exp), K3 through autograd and K2(a)
+    causal without a key bias at B=16; eval3 K2(a) without a key bias at
+    B=16, K2(b) at [16, 593] and K2(c) at [16*257, 8]. Times each at the
+    shape of the path it is named for (K1 and K2(a): eval)."""
     from missm_tpu_torch.kernels import attention as K
 
     neg = torch.finfo(torch.float32).min
@@ -173,45 +199,62 @@ def kernel_phase(dev, rng):
     _, mask = text_batch(rng, B, vary_length=True)
     kbias = torch.where(torch.as_tensor(mask, device=dev)[:, None, :] == 0,
                         neg, 0.0).float().contiguous()
+    flash = "missm_tpu/kernels/flash_attention.py"
+    # ids without a mask (the train and eval3 batches): causal, no key bias
+    causal_ids = dict(
+        run=lambda q, k, v: K.causal_attention(q, k, v, None, 12),
+        plain=lambda q, k, v: K.attention_plain(q, k, v, 12, causal=True))
     specs = [
-        dict(name="attention", n=257, heads=16, kbias=None,
-             replaces="missm_tpu/kernels/flash_attention.py:352 "
-                      "(fused_attention_cls)",
+        dict(name="attention", path="eval", b=B, n=257, heads=16, kbias=None,
+             replaces=f"{flash}:352 (fused_attention_cls)",
              run=lambda q, k, v: K.attention(q, k, v, 16),
-             plain=lambda q, k, v: K.attention_plain(q, k, v, 16)),
-        dict(name="causal_attention", n=77, heads=12, kbias=kbias,
-             replaces="missm_tpu/kernels/flash_attention.py:277 "
-                      "(fused_attention, causal=True, kbias)",
+             plain=lambda q, k, v: K.attention_plain(q, k, v, 16),
+             # the video tower's spatial attention: 16 videos x 8 frames
+             more={"eval3": dict(b=B3 * FRAMES, recorded=False)}),
+        dict(name="causal_attention", path="eval", b=B, n=77, heads=12,
+             kbias=kbias,
+             replaces=f"{flash}:277 (fused_attention, causal=True, kbias)",
              run=lambda q, k, v: K.causal_attention(q, k, v, kbias, 12),
              plain=lambda q, k, v: K.attention_plain(
                  q, k, v, 12, causal=True, kbias=kbias),
-             # the train batch has ids without a mask: causal, no key bias
-             train=dict(
-                 run=lambda q, k, v: K.causal_attention(q, k, v, None, 12),
-                 plain=lambda q, k, v: K.attention_plain(q, k, v, 12,
-                                                         causal=True))),
+             more={"train": dict(causal_ids, b=b_train, recorded=True),
+                   "eval3": dict(causal_ids, b=B3, recorded=False)}),
+        dict(name="attention_unsplit", path="eval3", b=B3, n=593, heads=16,
+             kbias=None,
+             replaces=f"{flash}:277 (fused_attention, unmasked, through "
+                      f"fused_attention_ad)",
+             run=lambda q, k, v: K.attention(q, k, v, 16),
+             plain=lambda q, k, v: K.attention_plain(q, k, v, 16)),
+        dict(name="short_attention", path="eval3", b=B3 * 257, n=FRAMES,
+             heads=16, kbias=None, source="short_attention.cu",
+             replaces=f"{flash}:277 (fused_attention, block_diag=8, through "
+                      f"missm_tpu/ops/attention.py:176 short_attention)",
+             run=lambda q, k, v: K.short_attention(q, k, v, 16),
+             plain=lambda q, k, v: K.short_attention_plain(q, k, v, 16)),
     ]
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
     for s in specs:
-        n, heads, hd = s["n"], s["heads"], 64
+        b, n, heads, hd = s["b"], s["n"], s["heads"], 64
         d = heads * hd
         row = {"name": s["name"], "route": "cuda",
-               "source": "missm_tpu_torch/csrc/attention.cu",
+               "source": "missm_tpu_torch/csrc/"
+                         + s.get("source", "attention.cu"),
                "replaces": s["replaces"],
-               "shape": f"B={B} N={n} H={heads} hd={hd}",
-               "checks": {"eval": forward_check(
-                   dev, gen, f"{s['name']} eval", B, n, heads, s["run"],
-                   s["plain"], recorded=False)}}
-        if "train" in s:
-            row["checks"]["train"] = forward_check(
-                dev, gen, f"{s['name']} train", b_train, n, heads,
-                s["train"]["run"], s["train"]["plain"], recorded=True)
+               "shape": f"B={b} N={n} H={heads} hd={hd}",
+               "checks": {s["path"]: forward_check(
+                   dev, gen, f"{s['name']} {s['path']}", b, n, heads,
+                   s["run"], s["plain"], recorded=False, counter=s["name"])}}
+        for path, c in s.get("more", {}).items():
+            row["checks"][path] = forward_check(
+                dev, gen, f"{s['name']} {path}", c["b"], n, heads,
+                c.get("run", s["run"]), c.get("plain", s["plain"]),
+                recorded=c["recorded"], counter=s["name"])
 
-        # timing, bf16 (the main path's type), at the eval step's shape
-        io_bytes = 4 * B * n * d * 2 + (0 if s["kbias"] is None else B * n * 4)
+        # timing, bf16 (the main path's type), at the named path's shape
+        io_bytes = 4 * b * n * d * 2 + (0 if s["kbias"] is None else b * n * 4)
         copies = max(1, math.ceil(2 * L2_BYTES / io_bytes))
-        sets = [[torch.randn(B, n, d, generator=gen, device=dev)
+        sets = [[torch.randn(b, n, d, generator=gen, device=dev)
                  .to(torch.bfloat16) for _ in range(3)] for _ in range(copies)]
         cyc = itertools.cycle(sets)
         row["ms"] = median_ms(lambda: s["run"](*next(cyc)))
@@ -223,7 +266,7 @@ def kernel_phase(dev, rng):
 
         def library(q, k, v):
             def heads_first(t):
-                return t.view(B, n, heads, hd).transpose(1, 2)
+                return t.view(b, n, heads, hd).transpose(1, 2)
             return torch.nn.functional.scaled_dot_product_attention(
                 heads_first(q), heads_first(k), heads_first(v),
                 attn_mask=mask4)
@@ -231,9 +274,10 @@ def kernel_phase(dev, rng):
 
         # the least time: each input read once and the output written once,
         # against the score and P.V products this run's data needs (causal:
-        # the keys at or before each query that are not padded)
+        # the keys at or before each query that are not padded; short: the
+        # T x T pairs within each instance)
         if s["kbias"] is None:
-            pairs = B * heads * n * n
+            pairs = b * heads * n * n
         else:
             valid = (s["kbias"][:, 0, :] == 0).double()          # [B, N]
             pairs = heads * valid.cumsum(-1).sum().item()
@@ -246,6 +290,7 @@ def kernel_phase(dev, rng):
               f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
               f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']})", flush=True)
+        del sets, cyc
         rows.append(row)
     rows.append(backward_row(dev, gen, rows[0]))
     for row in rows:
@@ -295,8 +340,9 @@ def backward_row(dev, gen, k1_row):
                   for x, r in zip(got, ref))
         abs_err = max((x.float() - r.float()).abs().max().item()
                       for x, r in zip(got, ref))
-        if not (rel <= GRAD_TOL[dtype] and via == {
-                "attention": 1, "attention_bwd": 1, "causal_attention": 0}
+        if not (rel <= GRAD_TOL[dtype]
+                and via == dict(dict.fromkeys(via, 0), attention=1,
+                                attention_bwd=1)
                 and all(torch.isfinite(x).all() for x in got)):
             raise AssertionError(f"attention_bwd {tag}: kernel disagrees with "
                                  f"the plain version, relative error {rel:.3e}"
@@ -416,8 +462,8 @@ def slice_phase(dev, rng, card, profile):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
-    expect = {"attention": 24 * STEPS, "attention_bwd": 0,
-              "causal_attention": 12 * STEPS}
+    expect = dict(dict.fromkeys(launches, 0), attention=24 * STEPS,
+                  causal_attention=12 * STEPS)
     if launches != expect:
         raise AssertionError(f"kernel launches {launches}, expected {expect}")
     probs = out["probs"]
@@ -459,6 +505,110 @@ def slice_phase(dev, rng, card, profile):
           f"|logits| max {ref.abs().max().item():.3f}", flush=True)
     if not err <= LOGITS_F32_ATOL:
         raise AssertionError("card f32 logits disagree with the CPU's")
+    return launches
+
+
+def eval3_config(compute_dtype):
+    """bench.py's eval3 model: LanguageBind video and audio towers, the
+    language tower being the audio tower's text tower, and the `sum` head."""
+    from missm_tpu_torch.core.config import languagebind_large
+    from missm_tpu_torch.models.finetune import ModelConfig
+    from missm_tpu_torch.models.fusion import FusionConfig
+
+    return ModelConfig(
+        towers=(("video", languagebind_large("video")),
+                ("audio", languagebind_large("audio"))),
+        fusion=FusionConfig(fusion_type="sum",
+                            modality_types=("language", "video", "audio"),
+                            output_dims=10, feature_dims=768, fusion_dim=256,
+                            dropout_prob=0.1),
+        compute_dtype=compute_dtype)
+
+
+def eval3_phase(dev, rng, card, profile):
+    from missm_tpu_torch.kernels import attention as K
+    from missm_tpu_torch.models import finetune
+    from missm_tpu_torch.train.step import make_eval_step
+
+    cfg = eval3_config("bfloat16")
+    t0 = time.perf_counter()
+    params = finetune.init_model_params(cfg, seed=0, device=dev)
+    params_bf16 = {"encoder": finetune.cast_tree(params["encoder"],
+                                                 torch.bfloat16),
+                   "fusion": params["fusion"]}
+    # bench.py's eval3 batch: ids without a mask, bf16 media
+    ids, _ = text_batch(rng, B3, vary_length=False)
+    video = rng.standard_normal((B3, 3, FRAMES, 224, 224)).astype(np.float32)
+    audio = rng.standard_normal((B3, 3, 112, 1036)).astype(np.float32)
+    data = {"language": torch.as_tensor(ids, device=dev),
+            "video": torch.as_tensor(video, device=dev).to(torch.bfloat16),
+            "audio": torch.as_tensor(audio, device=dev).to(torch.bfloat16)}
+    labels = torch.as_tensor(rng.integers(0, 10, B3), device=dev)
+    masks = [torch.as_tensor(rng.choice([0, 1, 2, 3], B3), device=dev)
+             for _ in range(4)]
+    eval_step = make_eval_step(cfg, device=dev)
+    for i in range(2):  # warm-up: cuBLAS/cuDNN plans
+        eval_step(params_bf16, data, labels, masks[i])
+    torch.cuda.synchronize()
+    print(f"eval3 set-up {time.perf_counter() - t0:.1f} s", flush=True)
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(STEPS):
+        out = eval_step(params_bf16, data, labels, masks[i % 4])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    video_cfg, audio_cfg = (t.vision for _, t in cfg.towers)
+    n_text = cfg.towers[-1][1].text.num_layers
+    # every other count 0: no backward, so neither attention_bwd nor
+    # attention_unsplit_bwd (K4's unmasked math, which nothing here checks)
+    expect = dict(dict.fromkeys(launches, 0),
+                  attention=video_cfg.num_layers * STEPS,
+                  short_attention=video_cfg.num_layers * STEPS,
+                  attention_unsplit=audio_cfg.num_layers * STEPS,
+                  causal_attention=n_text * STEPS)
+    if launches != expect:
+        raise AssertionError(f"eval3 kernel launches {launches}, expected "
+                             f"{expect}")
+    probs = out["probs"]
+    if not (torch.isfinite(probs).all() and torch.isfinite(out["loss"])):
+        raise AssertionError("non-finite eval3 outputs")
+    if not torch.allclose(probs.sum(-1), torch.ones(B3, device=dev),
+                          atol=1e-5):
+        raise AssertionError("eval3 probs do not sum to 1")
+    if probs.shape != (B3, 10) or out["preds"].shape != (B3,):
+        raise AssertionError(f"eval3 output shapes {tuple(probs.shape)}, "
+                             f"{tuple(out['preds'].shape)}")
+    rate = B3 * STEPS / dt
+    print(f"eval3: {STEPS} steps of B={B3} in {dt:.4f} s = {rate:.2f} "
+          f"samples/s, {dt / STEPS * 1e3:.3f} ms/step, loss "
+          f"{out['loss'].item():.4f} [{card}]", flush=True)
+
+    if profile:
+        profile_step("eval3", lambda: eval_step(params_bf16, data, labels,
+                                                masks[0]))
+    del params_bf16, data, out
+
+    # f32 on the card (no TF32) vs f32 on the CPU (plain attention), 2 rows:
+    # one complete, one without its video
+    cfg32 = eval3_config("float32")
+    rows = {"language": ids[:2], "video": video[:2], "audio": audio[:2]}
+    miss = np.array([0, 2])
+    with no_tf32():
+        got, _ = finetune.model_forward(params, cfg32, rows, miss, device=dev)
+    params_cpu = finetune.tree_map(lambda t: t.cpu(), params)
+    del params
+    t0 = time.perf_counter()
+    ref, _ = finetune.model_forward(params_cpu, cfg32, rows, miss,
+                                    device="cpu")
+    err = (got.cpu() - ref).abs().max().item()
+    print(f"eval3 f32 logits, card vs CPU plain (2 rows, codes {miss.tolist()}"
+          f", CPU {time.perf_counter() - t0:.1f} s): max abs err {err:.3e} "
+          f"(limit {LOGITS_F32_ATOL}); |logits| max "
+          f"{ref.abs().max().item():.3f}", flush=True)
+    if not err <= LOGITS_F32_ATOL:
+        raise AssertionError("card f32 eval3 logits disagree with the CPU's")
     return launches
 
 
@@ -514,9 +664,12 @@ def train_phase(dev, rng, card, profile):
     dt = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
     n_vision, n_text = layers(cfg)
-    expect = {"attention": n_vision * ACCUM * STEPS,
-              "attention_bwd": n_vision * ACCUM * STEPS,
-              "causal_attention": n_text * ACCUM * STEPS}
+    # every other count 0: N=257 takes the CLS-split route, so nothing
+    # reaches attention_unsplit_bwd (K4's unmasked math, unchecked here)
+    expect = dict(dict.fromkeys(launches, 0),
+                  attention=n_vision * ACCUM * STEPS,
+                  attention_bwd=n_vision * ACCUM * STEPS,
+                  causal_attention=n_text * ACCUM * STEPS)
     if launches != expect:
         raise AssertionError(f"train kernel launches {launches}, expected "
                              f"{expect}")
@@ -623,7 +776,8 @@ def profile_step(name, run):
                if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
                and not e.key.startswith("Optimizer.")]
-    groups = {"attention kernels": ("attention_bf16", "attention_f32"),
+    groups = {"attention kernels": ("attention_bf16", "attention_f32",
+                                    "short_attention"),
               "attention backward kernels": ("attention_bwd",),
               "GEMM": ("gemm", "nvjet", "cutlass", "xmma"),
               "layer_norm": ("layer_norm",), "conv": ("conv",)}
@@ -639,7 +793,9 @@ def profile_step(name, run):
           f"kernel time {busy:.3f} ms, idle share {1 - busy / wall:.3f}; "
           + ", ".join(f"{g} {t:.3f} ms" for g, t in by_group.items()),
           flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+    # the 12 largest, then the port's own kernels that are not among them
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    for e in ranked[:12] + [e for e in ranked[12:] if "attention" in e.key]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
               f"{e.key[:90]}")
 
@@ -647,8 +803,8 @@ def profile_step(name, run):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one eval and one train step with "
-                         "torch.profiler")
+                    help="also trace one eval, one train and one eval3 step "
+                         "with torch.profiler")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -671,7 +827,8 @@ def main() -> int:
                    if "Compiling entry" in ln or "registers" in ln]
         main = [entries[i + 1].split(": ")[-1]
                 for i in range(len(entries) - 1)
-                if "bf16ILi64E" in entries[i]]
+                if "bf16ILi64E" in entries[i]
+                or "bfloat16Li64ELi8E" in entries[i]]
         print(f"build csrc/{src}.cu: {seconds:.1f} s; bf16 hd=64 kernels: "
               f"{main}", flush=True)
         out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -684,7 +841,8 @@ def main() -> int:
     rng = np.random.default_rng(0)
     rows = kernel_phase(dev, rng)
     paths = {"eval": slice_phase(dev, rng, card, args.profile),
-             "train": train_phase(dev, rng, card, args.profile)}
+             "train": train_phase(dev, rng, card, args.profile),
+             "eval3": eval3_phase(dev, rng, card, args.profile)}
     for row in rows:
         # launches: over the counted steps of every path that runs it
         row["launches"] = sum(p[row["name"]] for p in paths.values())

@@ -1,25 +1,39 @@
 """Softmax self-attention: the hand-written CUDA kernels (csrc/attention.cu,
-csrc/attention_bwd.cu), their autograd wrappers and their plain PyTorch
-versions.
+csrc/attention_bwd.cu, csrc/short_attention.cu), their autograd wrappers and
+their plain PyTorch versions.
 
-Two wrappers share the forward kernel, one per TPU kernel it replaces
+The wrappers, by the TPU kernel each takes the place of
 (missm_tpu/kernels/flash_attention.py):
 
-- `attention` (K1) takes the place of `fused_attention_cls`: bias-free
-  attention, the image tower's path. The TPU kernel gets K/V split into a
-  CLS row and 256 main keys to fill its 128-wide lanes; here K/V come whole.
-  Its gradient is the backward kernel (K3), which takes the place of
-  `fused_attention_cls_bwd`.
+- `attention`: bias-free attention, on csrc/attention.cu. The JAX package
+  sends it to one of two TPU kernels, and the launch counts follow it:
+  - K1, `fused_attention_cls` (`LAUNCHES["attention"]`), where it takes the
+    CLS split: N - 1 a positive multiple of 128 and head pairs of 64, the
+    image and video towers' spatial attention at N = 257. The TPU kernel
+    gets K/V split into a CLS row and 256 main keys to fill its 128-wide
+    lanes; here K/V come whole.
+  - K2 mode b, `fused_attention` unmasked (`LAUNCHES["attention_unsplit"]`),
+    everywhere else: the audio tower at N = 593.
+  Its gradient is the backward kernel (csrc/attention_bwd.cu), which takes
+  the place of K3, `fused_attention_cls_bwd` (`LAUNCHES["attention_bwd"]`),
+  and computes K4's unmasked math, `fused_attention_bwd`, on the other route
+  (`LAUNCHES["attention_unsplit_bwd"]`).
 - `causal_attention` (K2, mode a) takes the place of
   `fused_attention(causal=True, kbias=...)`: causal attention with an
   optional additive key bias [B, 1, N], the text tower's path. Its gradient
   is plain PyTorch, as the JAX package's is einsum (`_fca_bwd`).
+- `short_attention` (K2, mode c) takes the place of
+  `fused_attention(block_diag=T)`: attention within each of M instances of
+  T <= 32 tokens, the video tower's temporal attention. Its gradient would
+  be K4, `fused_attention_bwd`, in block-diagonal mode, which is not
+  ported: on a CUDA tensor a call that autograd records raises
+  NotImplementedError (the eval path runs under inference mode).
 
-q, k, v and the output are [B, N, H*hd]. Scores, softmax and accumulation are
-f32; the output has the input's type (bf16 or f32). On a CPU tensor a wrapper
-computes the plain version under plain autograd; on a CUDA tensor it
-launches the kernel or raises. Each launch adds one to
-`LAUNCHES[<wrapper name>]` (`attention_bwd` for K3).
+q, k, v and the output are [B, N, H*hd] ([M, T, H*hd] for short_attention).
+Scores, softmax and accumulation are f32; the output has the input's type
+(bf16 or f32). On a CPU tensor a wrapper computes the plain version under
+plain autograd; on a CUDA tensor it launches the kernel or raises. Each
+launch adds one to its count in `LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -29,9 +43,12 @@ import torch
 
 from . import build
 
-LAUNCHES = {"attention": 0, "attention_bwd": 0, "causal_attention": 0}
+LAUNCHES = {"attention": 0, "attention_unsplit": 0, "attention_bwd": 0,
+            "attention_unsplit_bwd": 0, "causal_attention": 0,
+            "short_attention": 0}
 
-_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)  # instantiated in both .cu
+_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)  # instantiated in every .cu
+SHORT_MAX_T = 32  # the longest instance csrc/short_attention.cu takes
 
 
 def reset_launches() -> None:
@@ -100,6 +117,15 @@ def _bwd_plain(q, k, v, g, num_heads, bias=None):
             dv.reshape(B, N, D).to(v.dtype), ds)
 
 
+def short_attention_plain(q, k, v, num_heads: int):
+    """Attention within each instance of [M, T, H*hd]: attention_plain with
+    the M instances as its batch. The same function as the JAX package's
+    block-diagonal mode on packed rows (`_einsum_reference(...,
+    block_diag=T)`), whose finfo.min mask leaves exactly zero weight on the
+    other instances' keys."""
+    return attention_plain(q, k, v, num_heads)
+
+
 def attention_bwd_plain(q, k, v, g, num_heads: int):
     """(dq, dk, dv) of bias-free attention for the output cotangent g: the
     plain version of the backward kernel (K3)."""
@@ -132,9 +158,20 @@ def _recorded(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
+def attention_route(n: int, num_heads: int, head_dim: int) -> str:
+    """The TPU kernel a bias-free call over N tokens takes the place of, as
+    its `LAUNCHES` name: "attention" (K1) where the JAX package takes the
+    CLS split (flash_attention.py::cls_split_available without its VMEM
+    budgets), else "attention_unsplit" (K2 mode b)."""
+    cls_split = (n > 128 and (n - 1) % 128 == 0 and head_dim == 64
+                 and num_heads % 2 == 0)
+    return "attention" if cls_split else "attention_unsplit"
+
+
 def attention(q, k, v, num_heads: int):
-    """softmax(q k^T hd^-0.5) v per (batch, head); K1 forward, K3 backward.
-    Only a recorded call writes the log-sum-exp that K3 needs."""
+    """softmax(q k^T hd^-0.5) v per (batch, head); the forward kernel, the
+    backward kernel for its gradient. Only a recorded call writes the
+    log-sum-exp that the backward kernel needs."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, num_heads)
     return _Attention.apply(q, k, v, num_heads, _recorded(q, k, v))
@@ -149,15 +186,34 @@ def causal_attention(q, k, v, kbias, num_heads: int):
     return _CausalAttention.apply(q, k, v, kbias, num_heads)
 
 
+_NO_SHORT_BACKWARD = (
+    "short_attention has no CUDA backward yet: its gradient is K4, "
+    "fused_attention_bwd in block-diagonal mode, which is not ported; call "
+    "it without autograd recording (inference mode or no_grad)")
+
+
+def short_attention(q, k, v, num_heads: int):
+    """Attention within each instance of q, k, v [M, T, H*hd], T <= 32;
+    K2 mode c forward. On CUDA tensors it has no backward, and a call that
+    autograd records raises."""
+    if q.device.type == "cpu":
+        return short_attention_plain(q, k, v, num_heads)
+    if _recorded(q, k, v):
+        raise NotImplementedError(_NO_SHORT_BACKWARD)
+    return _ShortAttention.apply(q, k, v, num_heads)
+
+
 class _Attention(torch.autograd.Function):
-    """K1 forward (writing the per-row log-sum-exp when `want_lse`), K3
-    backward."""
+    """The forward kernel (writing the per-row log-sum-exp when `want_lse`),
+    the backward kernel; both counted under the call's route."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads, want_lse):
         out, lse = _launch(q, k, v, None, num_heads, causal=False,
                            want_lse=want_lse)
-        LAUNCHES["attention"] += 1
+        ctx.route = attention_route(q.shape[1], num_heads,
+                                    q.shape[2] // num_heads)
+        LAUNCHES[ctx.route] += 1
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.num_heads = num_heads
         return out
@@ -167,7 +223,7 @@ class _Attention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _launch_bwd(q, k, v, out, lse, g.contiguous(),
                                  ctx.num_heads)
-        LAUNCHES["attention_bwd"] += 1
+        LAUNCHES[ctx.route + "_bwd"] += 1
         return dq, dk, dv, None, None
 
 
@@ -189,6 +245,20 @@ class _CausalAttention(torch.autograd.Function):
             q, k, v, kbias if ctx.needs_input_grad[3] else None,
             g.contiguous(), ctx.num_heads)
         return dq, dk, dv, dkb, None
+
+
+class _ShortAttention(torch.autograd.Function):
+    """K2(c) forward; its backward (K4 block-diagonal) is not ported."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads):
+        out = _launch_short(q, k, v, num_heads)
+        LAUNCHES["short_attention"] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(_NO_SHORT_BACKWARD)
 
 
 # ---------------------------------------------------------------------------
@@ -241,6 +311,25 @@ def _launch(q, k, v, kbias, num_heads, *, causal, want_lse=False):
     if rc != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {rc}")
     return out, lse
+
+
+def _launch_short(q, k, v, num_heads):
+    """The K2(c) kernel: attention within each instance of [M, T, H*hd]."""
+    _check(num_heads, q, k=k, v=v)
+    M, T, D = q.shape
+    if not 1 <= T <= SHORT_MAX_T:
+        raise ValueError(f"short attention takes 1 <= T <= {SHORT_MAX_T} "
+                         f"tokens per instance; got T={T}")
+    out = torch.empty_like(q)
+    fn = _function("short_attention", "missm_short_attention_forward", 4, 5)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), M, T,
+            num_heads, D // num_heads, int(q.dtype == torch.bfloat16),
+            (D // num_heads) ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"short attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    return out
 
 
 def _launch_bwd(q, k, v, out, lse, g, num_heads):

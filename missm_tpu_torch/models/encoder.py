@@ -40,7 +40,7 @@ def encode(params, tower_cfgs: Mapping[str, TowerConfig], inputs: Mapping, *,
            use_temp: bool = True, train: bool = False,
            remat: bool = False) -> Dict[str, torch.Tensor]:
     """inputs: {'language': input_ids [B, L] or {'input_ids', 'attention_mask'}}
-    and/or {modality: pixel_values [B, C, H, W]}.
+    and/or {modality: pixel_values [B, C, H, W] or video [B, C, T, H, W]}.
 
     Returns {modality: [B, projection_dim]} L2-normalised embeddings, the
     non-language ones times exp(logit_scale) when `use_temp`. Missing-modality

@@ -55,9 +55,12 @@ def cast_tree(tree, dtype):
 
 
 def _dequantize(x, dtype):
-    """uint8 media batch [B, 3, H, W] -> normalised CLIP input; normalised
-    in f32, then cast."""
-    shape = (1, 3) + (1,) * (x.dim() - 2)
+    """uint8 media batch -> normalised CLIP input; normalised in f32, then
+    cast. The channel axis is 1 for the [B, 3, H, W] and [B, 3, T, H, W]
+    layouts and 4 for the 7-D retrieval-pair layout, as in the JAX
+    package."""
+    c_axis = 4 if x.dim() == 7 else 1
+    shape = tuple(3 if i == c_axis else 1 for i in range(x.dim()))
     mean = torch.tensor(OPENAI_MEAN, device=x.device).reshape(shape)
     std = torch.tensor(OPENAI_STD, device=x.device).reshape(shape)
     return ((x.float() / 255.0 - mean) / std).to(dtype)

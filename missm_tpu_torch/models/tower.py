@@ -3,10 +3,11 @@
 Plain functions over parameter dicts, laid out as in the JAX package (linear
 weights (in, out)), except that the transformer blocks are a list of
 per-layer dicts walked by a Python loop where JAX stacks them [L, ...] for
-`lax.scan`. This slice ports the text tower and the vision tower on 4-D
-image input, forward and backward, with full per-block remat; temporal
-attention, tube-3D embedding, 5-D/7-D video input, patch dropout and the
-named remat policies raise NotImplementedError.
+`lax.scan`. Ported: the text tower, and the vision tower on 4-D image input
+and on 5-D video input [B, C, T, H, W] with the temporal blocks (temporal
+embedding, temporal attention, optional temporal MLP), forward and backward,
+with full per-block remat. Tube-3D embedding, 7-D input, patch dropout and
+the named remat policies raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..core.config import TextConfig, TowerConfig, VisionConfig
-from ..ops.attention import multi_head_attention
+from ..ops.attention import multi_head_attention, short_attention
 from ..ops.basic import get_activation, layer_norm, linear
 
 # ---------------------------------------------------------------------------
@@ -62,12 +63,16 @@ def _init_attn(gen, d, num_layers, lora_r=0):
     return p
 
 
-def _init_mlp(gen, d, d_ff, num_layers):
-    return {
+def _init_mlp(gen, d, d_ff, num_layers, lora_r=0):
+    p = {
         "fc1": _init_linear(gen, d, d_ff, (2 * d) ** -0.5),
         "fc2": _init_linear(gen, d_ff, d,
                             (d ** -0.5) * ((2 * num_layers) ** -0.5)),
     }
+    if lora_r:
+        p["fc1"].update(_init_lora(gen, d, d_ff, lora_r))
+        p["fc2"].update(_init_lora(gen, d_ff, d, lora_r))
+    return p
 
 
 def _init_ln(d, device):
@@ -75,13 +80,25 @@ def _init_ln(d, device):
             "bias": torch.zeros(d, device=device)}
 
 
-def _init_block(gen, d, d_ff, num_layers, attn_lora=0):
-    return {
+def _init_block(gen, d, d_ff, num_layers, *, time_attn=False,
+                temporal_mlp=True, num_frames=1, attn_lora=0):
+    """With `time_attn` the block gets the temporal modules and LoRA moves
+    from the spatial attention to them (tattn, and tmlp's fc1/fc2)."""
+    p = {
         "ln1": _init_ln(d, gen.device),
-        "attn": _init_attn(gen, d, num_layers, lora_r=attn_lora),
+        "attn": _init_attn(gen, d, num_layers,
+                           lora_r=0 if time_attn else attn_lora),
         "ln2": _init_ln(d, gen.device),
         "mlp": _init_mlp(gen, d, d_ff, num_layers),
     }
+    if time_attn:
+        p["temporal_embedding"] = _normal(gen, (num_frames, d), d ** -0.5)
+        p["tln1"] = _init_ln(d, gen.device)
+        p["tattn"] = _init_attn(gen, d, num_layers, lora_r=attn_lora)
+        if temporal_mlp:
+            p["tln2"] = _init_ln(d, gen.device)
+            p["tmlp"] = _init_mlp(gen, d, d_ff, num_layers, lora_r=attn_lora)
+    return p
 
 
 def init_text_params(gen: torch.Generator, cfg: TextConfig):
@@ -97,9 +114,8 @@ def init_text_params(gen: torch.Generator, cfg: TextConfig):
 
 
 def _check_vision_config(cfg: VisionConfig):
-    if cfg.add_time_attn or cfg.use_tube3d:
-        raise NotImplementedError(
-            "temporal attention and tube-3D embedding are not ported yet")
+    if cfg.use_tube3d:
+        raise NotImplementedError("tube-3D embedding is not ported yet")
 
 
 def init_vision_params(gen: torch.Generator, cfg: VisionConfig):
@@ -112,6 +128,9 @@ def init_vision_params(gen: torch.Generator, cfg: VisionConfig):
         "position_embedding": _normal(gen, (cfg.num_patches + 1, d), 0.02),
         "pre_ln": _init_ln(d, gen.device),
         "blocks": [_init_block(gen, d, cfg.intermediate_size, cfg.num_layers,
+                               time_attn=cfg.add_time_attn,
+                               temporal_mlp=cfg.temporal_mlp,
+                               num_frames=cfg.num_frames,
                                attn_lora=cfg.lora_r)
                    for _ in range(cfg.num_layers)],
         "post_ln": _init_ln(d, gen.device),
@@ -137,8 +156,36 @@ def init_tower_params(gen: torch.Generator, cfg: TowerConfig):
 # ---------------------------------------------------------------------------
 
 
+def _temporal(p, x, *, time, num_heads, act, eps, lora_scaling):
+    """The temporal half of a video block over x [(B*T), N, D], frame-minor:
+    the temporal embedding (T > 1), then attention over the T frames of each
+    (video, token) and the optional temporal MLP, each pre-LN and residual.
+    LoRA sits on these modules."""
+    T, N = time
+    D = x.shape[-1]
+    if T != 1:
+        x = (x.reshape(-1, T, N, D)
+             + p["temporal_embedding"][:T][None, :, None]).reshape(-1, N, D)
+    # tln1 is per token, so it runs before the [B, T, N] -> [B, N, T] relayout
+    ht = layer_norm(p["tln1"], x, eps)
+    ht = ht.reshape(-1, T, N, D).transpose(1, 2).reshape(-1, T, D)
+    ht = short_attention(p["tattn"], ht, num_heads=num_heads,
+                         lora_scaling=lora_scaling)
+    x = x + ht.reshape(-1, N, T, D).transpose(1, 2).reshape(-1, N, D)
+    if "tmlp" in p:
+        # per token as well: it runs on the [(B*T), N, D] stream as it is
+        wide = act(linear(p["tmlp"]["fc1"], layer_norm(p["tln2"], x, eps),
+                          lora_scaling=lora_scaling))
+        x = x + linear(p["tmlp"]["fc2"], wide, lora_scaling=lora_scaling)
+    return x
+
+
 def _block(p, x, *, num_heads, act, eps, causal=False, key_bias=None,
-           lora_scaling=None):
+           time=None, lora_scaling=None):
+    if time is not None:
+        x = _temporal(p, x, time=time, num_heads=num_heads, act=act, eps=eps,
+                      lora_scaling=lora_scaling)
+        lora_scaling = None  # the spatial attention has no LoRA here
     h = x + multi_head_attention(p["attn"], layer_norm(p["ln1"], x, eps),
                                  num_heads=num_heads, causal=causal,
                                  key_bias=key_bias, lora_scaling=lora_scaling)
@@ -147,7 +194,8 @@ def _block(p, x, *, num_heads, act, eps, causal=False, key_bias=None,
 
 
 def _block_forward(p, x, *, remat=False, **kwargs):
-    """One pre-LN transformer block (the non-temporal branch).
+    """One pre-LN transformer block; with `time` = (T, N), x is
+    [(B*T), N, D] and the temporal half runs first.
 
     remat=True recomputes the block in the backward and keeps only its
     input (missm_tpu/models/tower.py's jax.checkpoint with policy=None).
@@ -199,34 +247,45 @@ def text_features(params, cfg: TextConfig, input_ids, attention_mask=None, *,
 
 def vision_features(params, cfg: VisionConfig, pixel_values, *, train=False,
                     remat=False, projection=None):
-    """pixel_values: [B, C, H, W] -> pooled [B, D] (CLS -> post-LN ->
-    projection). `train` changes nothing here but patch dropout, which is
-    not ported: a train-mode call with force_patch_dropout > 0 raises."""
+    """pixel_values: [B, C, H, W] or [B, C, T, H, W] -> pooled [B, D] (CLS ->
+    post-LN per frame -> mean over frames -> projection). `train` changes
+    nothing here but patch dropout, which is not ported: a train-mode call
+    with force_patch_dropout > 0 raises. The JAX package runs large batches
+    in chunks of whole videos (`chunk_instances`), which does not change the
+    result; the port runs one chunk."""
     _check_vision_config(cfg)
-    if pixel_values.dim() != 4:
+    if pixel_values.dim() == 5:
+        B, C, T, H, W = pixel_values.shape
+        # frames b-major, t-minor: the [(B*T), N, D] stream of the blocks
+        frames = pixel_values.transpose(1, 2).reshape(B * T, C, H, W)
+    elif pixel_values.dim() == 4:
+        B, C, H, W = pixel_values.shape
+        T, frames = 1, pixel_values
+    else:
         raise NotImplementedError(
-            f"only 4-D image input is ported; got {pixel_values.dim()}-D")
+            f"4-D image and 5-D video input are ported; got "
+            f"{pixel_values.dim()}-D")
     if train and cfg.force_patch_dropout > 0.0:
         raise NotImplementedError("patch dropout is not ported yet")
-    B, C, H, W = pixel_values.shape
     d = cfg.hidden_size
     p_sz = cfg.patch_size
-    # strided conv; the weight is stored (C*p*p, D) in (c, i, j) order
+    # strided conv per frame; the weight is stored (C*p*p, D) in (c, i, j)
+    # order
     w = params["patch_embedding"]["w"].reshape(C, p_sz, p_sz, d)
-    emb = F.conv2d(pixel_values, w.permute(3, 0, 1, 2).to(pixel_values.dtype),
-                   stride=p_sz)                       # [B, d, gh, gw]
-    emb = emb.flatten(2).transpose(1, 2)              # [B, gh*gw, d]
-    cls = params["class_embedding"].expand(B, 1, d)
+    emb = F.conv2d(frames, w.permute(3, 0, 1, 2).to(frames.dtype),
+                   stride=p_sz)                       # [B*T, d, gh, gw]
+    emb = emb.flatten(2).transpose(1, 2)              # [B*T, gh*gw, d]
+    cls = params["class_embedding"].expand(B * T, 1, d)
     x = torch.cat([cls, emb], dim=1) + params["position_embedding"][None]
     x = layer_norm(params["pre_ln"], x, cfg.layer_norm_eps)
 
     lora_scaling = (cfg.lora_alpha / cfg.lora_r) if cfg.lora_r else None
+    time = (T, x.shape[1]) if cfg.add_time_attn else None
     x = _encoder(params["blocks"], x, num_heads=cfg.num_heads,
                  act=get_activation(cfg.hidden_act), eps=cfg.layer_norm_eps,
-                 lora_scaling=lora_scaling, remat=remat)
-    # one frame per image, so the JAX package's mean over frames is the
-    # identity here
+                 time=time, lora_scaling=lora_scaling, remat=remat)
     pooled = layer_norm(params["post_ln"], x[:, 0, :], cfg.layer_norm_eps)
+    pooled = pooled.reshape(B, T, -1).mean(dim=1)
     if projection is not None:
         pooled = linear(projection, pooled)
     return pooled

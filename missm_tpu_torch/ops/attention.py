@@ -4,7 +4,8 @@ Numerics match HF `CLIPAttention`: q scaled by head_dim**-0.5, softmax in
 f32, additive bias masks. Bias-free attention and causal attention (with an
 optional key bias) go to the attention kernel (kernels/attention.py), which
 computes the plain version for CPU tensors; attention with a dense `bias`
-stays plain PyTorch, as the JAX package keeps it on XLA.
+stays plain PyTorch, as the JAX package keeps it on XLA. Temporal attention
+over tiny instances goes to the short-attention kernel (`short_attention`).
 """
 from __future__ import annotations
 
@@ -33,6 +34,23 @@ def multi_head_attention(params, x, *, num_heads: int, bias=None,
     else:
         out = kernels.attention_plain(q, k, v, num_heads, causal=causal,
                                       kbias=key_bias, bias=bias)
+    return linear(params["out"], out, lora_scaling=lora_scaling)
+
+
+def short_attention(params, x, *, num_heads: int,
+                    lora_scaling: float | None = None):
+    """Self-attention within each of the M instances of x [M, T, D], T <= 32
+    (the video tower's temporal attention over T frames).
+
+    The TPU path packs 128/T instances into one 128-token row under a
+    block-diagonal mask, and runs a leftover that does not fill a row, or a
+    shape the packing does not take, through einsums. The kernel here takes
+    the instances as they are, all of them, so none of that is carried
+    over."""
+    q = linear(params["q"], x, lora_scaling=lora_scaling)
+    k = linear(params["k"], x, lora_scaling=lora_scaling)
+    v = linear(params["v"], x, lora_scaling=lora_scaling)
+    out = kernels.short_attention(q, k, v, num_heads)
     return linear(params["out"], out, lora_scaling=lora_scaling)
 
 

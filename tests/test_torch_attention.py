@@ -4,10 +4,12 @@ JAX package.
 On the CPU the port's kernel wrappers compute their plain versions; these
 are held against the Pallas kernels they replace, run in interpret mode
 (missm_tpu.kernels.flash_attention.fused_attention_cls for K1,
-fused_attention(causal=True, kbias=...) for K2, fused_attention_cls_bwd for
-K3), the causal backward against the JAX package's einsum gradient, and the
-port's multi_head_attention, forward and gradients, against the JAX one
-(einsum branch on the CPU). All in f32 with the tolerances of
+fused_attention(causal=True, kbias=...) for K2 mode a, fused_attention
+unmasked for K2 mode b, fused_attention(block_diag=T) on packed rows for K2
+mode c, fused_attention_cls_bwd for K3), the causal backward against the JAX
+package's einsum gradient, and the port's multi_head_attention and
+short_attention, forward and gradients, against the JAX ones (einsum
+branches on the CPU). All in f32 with the tolerances of
 tests/test_flash_attention.py. The kernels themselves are held against the
 plain versions on the card in tests/test_torch_cuda.py.
 """
@@ -18,7 +20,8 @@ import pytest
 import torch
 
 from missm_tpu.kernels import flash_attention as jfa
-from missm_tpu.kernels.flash_attention import (fused_attention,
+from missm_tpu.kernels.flash_attention import (_einsum_reference,
+                                               fused_attention,
                                                fused_attention_cls,
                                                fused_attention_cls_bwd)
 from missm_tpu.ops import attention as jattn
@@ -55,6 +58,91 @@ def test_attention_plain_matches_cls_split_kernel(rng, n, heads):
     got = kernels.attention(torch.from_numpy(q), kt, vt, heads)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL,
                                rtol=RTOL)
+
+
+@pytest.mark.parametrize("n", [97, 593])
+def test_unsplit_attention_plain_matches_unmasked_kernel(rng, n):
+    """K2 mode b: where the CLS split does not apply (N - 1 not a multiple
+    of 128: the audio tower's N = 593), the JAX package takes the unmasked
+    fused kernel, and the port's `attention` wrapper the same forward as
+    K1, counted under its own name."""
+    heads = 2
+    q, k, v = _qkv(rng, 1, n, heads * 64)
+    assert kernels.attention_route(n, heads, 64) == "attention_unsplit"
+    ref = fused_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          heads, interpret=True)
+    got = kernels.attention(*(torch.from_numpy(a) for a in (q, k, v)), heads)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("n,heads,hd,route", [
+    (257, 16, 64, "attention"), (129, 2, 64, "attention"),
+    (593, 16, 64, "attention_unsplit"), (257, 16, 32, "attention_unsplit"),
+    (257, 3, 64, "attention_unsplit"), (77, 12, 64, "attention_unsplit"),
+    (5, 2, 16, "attention_unsplit")])
+def test_attention_route_follows_the_cls_split(n, heads, hd, route):
+    """The launch count a bias-free call goes to is the TPU kernel the JAX
+    package would run: K1 where it takes the CLS split."""
+    assert kernels.attention_route(n, heads, hd) == route
+    assert jfa.cls_split_available(heads, hd, n) == (route == "attention")
+
+
+def _packed(x, t):
+    """[M, T, D] -> the TPU's packed rows [M*T/128, 128, D]."""
+    m, _, d = x.shape
+    return jnp.asarray(x.reshape(m * t // 128, 128, d))
+
+
+@pytest.mark.parametrize("m", [16, 48])
+def test_short_attention_plain_matches_block_diag_kernel(rng, m):
+    """K2 mode c: per-instance attention over [M, T, D] against the TPU
+    kernel's block-diagonal mode on the packed rows (16 instances of T=8
+    per 128-token row, tests/test_packed_attention.py) and against
+    _einsum_reference on the same rows."""
+    heads, hd, t = 2, 64, 8
+    q, k, v = _qkv(rng, m, t, heads * hd)
+    packed = [_packed(a, t) for a in (q, k, v)]
+    got = kernels.short_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                  heads).numpy()
+    for ref in (fused_attention(*packed, heads, block_diag=t, interpret=True),
+                _einsum_reference(*packed, heads, block_diag=t)):
+        np.testing.assert_allclose(got, np.asarray(ref).reshape(m, t, -1),
+                                   atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("m", [16, 37])
+def test_short_attention_matches_jax(rng, m):
+    """ops.attention.short_attention, LoRA non-zero, forward and gradients
+    against the JAX one (its einsum fallback on the CPU). M = 37 leaves a
+    remainder that the TPU's packing would run apart; the port has none."""
+    heads, hd, t = 2, 16, 4
+    d = heads * hd
+    params = _attn_params(rng, d, lora_r=2)
+    x = rng.standard_normal((m, t, d)).astype(np.float32)
+    cot = rng.standard_normal(x.shape).astype(np.float32)
+
+    def jloss(p, x):
+        out = jattn.short_attention(p, x, num_heads=heads, lora_scaling=8.0)
+        return (out * cot).sum(), out
+
+    (_, ref), (jp, jx) = jax.value_and_grad(jloss, argnums=(0, 1),
+                                            has_aux=True)(
+        _tree(params, jnp.asarray), jnp.asarray(x))
+    tp = _tree(params, lambda a: torch.from_numpy(a).requires_grad_())
+    tx = torch.from_numpy(x).requires_grad_()
+    out = tattn.short_attention(tp, tx, num_heads=heads, lora_scaling=8.0)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               atol=ATOL, rtol=RTOL)
+    (out * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jx),
+                               atol=BWD_ATOL, rtol=BWD_RTOL)
+    for name, p in tp.items():
+        for key, t_ in p.items():
+            np.testing.assert_allclose(t_.grad.numpy(),
+                                       np.asarray(jp[name][key]),
+                                       atol=BWD_ATOL, rtol=BWD_RTOL,
+                                       err_msg=f"{name}/{key}")
 
 
 @pytest.mark.parametrize("n", [16, 77])
@@ -257,8 +345,10 @@ def test_wrappers_on_cpu_use_the_plain_version_and_count_nothing(rng):
     q, k, v = (torch.from_numpy(a).requires_grad_()
                for a in _qkv(rng, 1, 8, 32))
     kernels.reset_launches()
-    out = kernels.attention(q, k, v, 2) + kernels.causal_attention(
-        q, k, v, None, 2)
+    out = (kernels.attention(q, k, v, 2)
+           + kernels.causal_attention(q, k, v, None, 2)
+           + kernels.short_attention(q, k, v, 2))
     out.sum().backward()
-    assert kernels.LAUNCHES == {"attention": 0, "attention_bwd": 0,
-                                "causal_attention": 0}
+    assert kernels.LAUNCHES == {"attention": 0, "attention_unsplit": 0,
+                                "attention_bwd": 0, "attention_unsplit_bwd": 0,
+                                "causal_attention": 0, "short_attention": 0}

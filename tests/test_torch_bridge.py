@@ -9,7 +9,7 @@ from missm_tpu.core.config import tiny_tower as jax_tiny_tower
 from missm_tpu.models import finetune as jft
 from missm_tpu.models.fusion import FusionConfig as JaxFusionConfig
 from missm_tpu.models.tower import init_tower_params as jax_init_tower
-from missm_tpu_torch.compat.from_jax import from_jax
+from missm_tpu_torch.compat.from_jax import from_jax, to_numpy
 from missm_tpu_torch.core.config import tiny_tower
 from missm_tpu_torch.models import finetune as tft
 from missm_tpu_torch.models.encoder import build_encoder_params
@@ -116,3 +116,45 @@ def test_port_init_has_the_jax_tree_and_distributions():
     assert not q["lora_b"].any()
     assert q["lora_a"].abs().max() <= 32 ** -0.5
     assert float(port["encoder"]["image"]["logit_scale"]) == np.float32(2.6592)
+
+
+def _video_audio_configs():
+    towers = (("video", dict(temporal_mlp=True)), ("audio", {}))
+    fusion = dict(FUSION, modality_types=("language", "video", "audio"))
+    jcfg = jft.ModelConfig(towers=tuple((m, jax_tiny_tower(m, **kw))
+                                        for m, kw in towers),
+                           fusion=JaxFusionConfig(**fusion))
+    tcfg = tft.ModelConfig(towers=tuple((m, tiny_tower(m, **kw))
+                                        for m, kw in towers),
+                           fusion=FusionConfig(**fusion))
+    return jcfg, tcfg
+
+
+def test_temporal_leaves_round_trip_and_match_the_port_init():
+    """The video tower's temporal leaves (temporal_embedding, tln1, tattn
+    with its LoRA, tln2 and tmlp with LoRA on fc1/fc2) cross the bridge and
+    come back unchanged through to_numpy; the port's own init has the same
+    tree."""
+    jcfg, tcfg = _video_audio_configs()
+    tree = jax.tree_util.tree_map(
+        np.asarray, jft.init_model_params(jax.random.PRNGKey(1), jcfg))
+    blocks = tree["encoder"]["video"]["vision"]["blocks"]
+    assert {"temporal_embedding", "tln1", "tattn", "tln2",
+            "tmlp"} <= set(blocks)
+    port = from_jax(tree, device="cpu")
+    layer = port["encoder"]["video"]["vision"]["blocks"][1]
+    np.testing.assert_array_equal(layer["temporal_embedding"].numpy(),
+                                  blocks["temporal_embedding"][1])
+    np.testing.assert_array_equal(layer["tmlp"]["fc2"]["lora_a"].numpy(),
+                                  blocks["tmlp"]["fc2"]["lora_a"][1])
+    back = to_numpy(port)
+    jax.tree_util.tree_map(np.testing.assert_array_equal, back, tree)
+    assert (jax.tree_util.tree_structure(back)
+            == jax.tree_util.tree_structure(tree))
+    own = tft.init_model_params(tcfg, seed=0, device="cpu")
+    assert _port_shapes(own) == _jax_shapes(tree)
+    block = own["encoder"]["video"]["vision"]["blocks"][0]
+    # LoRA moves from the spatial attention to the temporal modules
+    assert "lora_a" not in block["attn"]["q"]
+    assert not block["tattn"]["out"]["lora_b"].any()
+    assert "lora_a" in own["encoder"]["audio"]["vision"]["blocks"][0]["attn"]["q"]

@@ -29,7 +29,12 @@ TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 2 ** -7)}
 # f32 throughout; each output is rounded to bf16 (2^-9 relative).
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SHAPES = [(2, 257, 16, 64), (3, 77, 12, 64), (2, 16, 2, 16), (2, 33, 2, 128),
-          (2, 70, 3, 48)]
+          (2, 70, 3, 48), (2, 593, 16, 64)]
+# short_attention (K2 mode c): (M, T, heads, hd). M need not be a multiple
+# of anything; T up to 32 (T=32 at hd=128 in f32 takes more than 48 KB of
+# shared memory per warp).
+SHORT_SHAPES = [(37, 8, 2, 64), (64, 4, 3, 16), (19, 4, 2, 64), (40, 8, 4, 16),
+                (11, 13, 3, 48), (5, 32, 2, 128), (4112, 8, 16, 64)]
 
 
 @pytest.fixture
@@ -54,6 +59,69 @@ def _rel(got, ref):
     return ((got.float() - ref.float()).norm() / ref.float().norm()).item()
 
 
+def _counts(**launched):
+    """Every launch count 0 but those given."""
+    return dict(dict.fromkeys(kernels.LAUNCHES, 0), **launched)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,t,heads,hd", SHORT_SHAPES)
+def test_short_kernel_matches_plain(cuda, dtype, m, t, heads, hd):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn(m, t, heads * hd, generator=gen, device=cuda)
+               .to(dtype) for _ in range(3))
+    kernels.reset_launches()
+    got = kernels.short_attention(q, k, v, heads)
+    ref = kernels.short_attention_plain(q, k, v, heads)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+    assert kernels.LAUNCHES == _counts(short_attention=1)
+
+
+def test_short_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros(4, 8, 64, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.short_attention(q.half(), q.half(), q.half(), 2)      # dtype
+    with pytest.raises(ValueError):
+        kernels.short_attention(q, q, q, 8)                           # hd 8
+    with pytest.raises(ValueError):
+        kernels.short_attention(q, q.bfloat16(), q, 2)                # mixed
+    with pytest.raises(ValueError):
+        kernels.short_attention(q, q[:2], q, 2)                       # shape
+    with pytest.raises(ValueError):
+        kernels.short_attention(q.transpose(0, 1).contiguous().transpose(0, 1),
+                                q, q, 2)                              # strides
+    long = torch.zeros(2, 33, 64, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.short_attention(long, long, long, 2)                  # T > 32
+    with pytest.raises(ValueError):
+        kernels.short_attention(q[0], q[0], q[0], 2)                  # 2-D
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_short_wrapper_carries_gradients(cuda, dtype):
+    """K2(c) has no backward kernel (K4 block-diagonal is not ported): a
+    recorded call on the card raises before it launches, while the same
+    inputs under no_grad launch the forward kernel."""
+    m, t, heads, hd = 24, 8, 2, 64
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(m, t, heads * hd, generator=gen, device=cuda)
+               .to(dtype).requires_grad_() for _ in range(3))
+    kernels.reset_launches()
+    with pytest.raises(NotImplementedError, match="K4"):
+        kernels.short_attention(q, k, v, heads)
+    assert kernels.LAUNCHES == _counts()
+    with torch.no_grad():
+        got = kernels.short_attention(q, k, v, heads)
+        ref = kernels.short_attention_plain(q, k, v, heads)
+    assert got.grad_fn is None
+    assert kernels.LAUNCHES == _counts(short_attention=1)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n,heads,hd", SHAPES)
 @pytest.mark.parametrize("mode", ["attention", "causal", "causal_pad"])
@@ -71,7 +139,8 @@ def test_kernel_matches_plain(cuda, dtype, b, n, heads, hd, mode):
     assert got.dtype == dtype and got.shape == q.shape
     atol, rtol = TOL[dtype]
     torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
-    name = "attention" if mode == "attention" else "causal_attention"
+    name = (kernels.attention_route(n, heads, hd) if mode == "attention"
+            else "causal_attention")
     assert kernels.LAUNCHES[name] == 1 and sum(kernels.LAUNCHES.values()) == 1
 
 
@@ -110,8 +179,44 @@ def test_tiny_model_on_the_card_matches_the_cpu(cuda, monkeypatch):
     card = finetune.tree_map(lambda t: t.to(cuda), params)
     kernels.reset_launches()
     got, _ = finetune.model_forward(card, cfg, data, missing, device=cuda)
-    assert kernels.LAUNCHES == {"attention": 2, "attention_bwd": 0,
-                                "causal_attention": 2}
+    # N = 5 image tokens: the unsplit route
+    assert kernels.LAUNCHES == _counts(attention_unsplit=2, causal_attention=2)
+    torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4)
+
+
+def test_tiny_video_audio_model_on_the_card_matches_the_cpu(cuda,
+                                                           monkeypatch):
+    """The eval3 model at tiny size (video with the temporal MLP, audio, the
+    audio tower's text), f32, temporal LoRA B non-zero: the card's logits
+    against the CPU's plain path, and the launches of each route."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = finetune.ModelConfig(
+        towers=(("video", tiny_tower("video", temporal_mlp=True)),
+                ("audio", tiny_tower("audio"))),
+        fusion=FusionConfig(fusion_type="sum",
+                            modality_types=("language", "video", "audio"),
+                            output_dims=3, feature_dims=24, fusion_dim=16))
+    params = finetune.init_model_params(cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(6)
+    for block in params["encoder"]["video"]["vision"]["blocks"]:
+        for proj in [*block["tattn"].values(), *block["tmlp"].values()]:
+            proj["lora_b"].normal_(0.0, 0.05, generator=gen)
+    rng = np.random.default_rng(1)
+    ids = rng.integers(1, 98, size=(4, 16)).astype(np.int32)
+    ids[:, 9] = 98
+    data = {"language": ids,
+            "video": rng.standard_normal((4, 3, 4, 32, 32)).astype(np.float32),
+            "audio": rng.standard_normal((4, 3, 32, 48)).astype(np.float32)}
+    missing = np.array([0, 1, 2, 3], np.int32)
+    ref, _ = finetune.model_forward(params, cfg, data, missing, device="cpu")
+    card = finetune.tree_map(lambda t: t.to(cuda), params)
+    kernels.reset_launches()
+    got, _ = finetune.model_forward(card, cfg, data, missing, device=cuda)
+    # 2 layers per tower; the spatial N = 5 (video) and 7 (audio) take the
+    # unsplit route
+    assert kernels.LAUNCHES == _counts(attention_unsplit=4, short_attention=2,
+                                       causal_attention=2)
     torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4)
 
 
@@ -163,10 +268,11 @@ def test_wrappers_carry_gradients(cuda, dtype, mode):
     kernels.reset_launches()
     got = grads(run)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES == {
-        "attention": int(mode == "attention"),
-        "attention_bwd": int(mode == "attention"),
-        "causal_attention": int(mode != "attention")}
+    if mode == "attention":  # N = 77: the unsplit route
+        assert kernels.LAUNCHES == _counts(attention_unsplit=1,
+                                           attention_unsplit_bwd=1)
+    else:
+        assert kernels.LAUNCHES == _counts(causal_attention=1)
     want = grads(plain)
     for i, (x, w) in enumerate(zip(got, want)):
         assert x is not None and x.abs().sum() > 0, i
@@ -220,9 +326,10 @@ def test_tiny_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
     kernels.reset_launches()
     loss_gpu, grads_gpu = _tiny_train(cuda, monkeypatch)
     torch.cuda.synchronize()
-    # 2 layers per tower, 2 microbatches
-    assert kernels.LAUNCHES == {"attention": 4, "attention_bwd": 4,
-                                "causal_attention": 4}
+    # 2 layers per tower, 2 microbatches; N = 5 image tokens: unsplit route
+    assert kernels.LAUNCHES == _counts(attention_unsplit=4,
+                                       attention_unsplit_bwd=4,
+                                       causal_attention=4)
     assert loss_gpu == pytest.approx(loss_cpu, rel=1e-5)
     assert len(grads_gpu) == len(grads_cpu)
     for i, (x, w) in enumerate(zip(grads_gpu, grads_cpu)):
