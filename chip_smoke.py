@@ -12,8 +12,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 backward through autograd and K2(a) without a key bias at
                 B=16; eval3: K2(a) without a key bias at B=16, K2(b) on the
                 audio tower's [16, 593] and K2(c) on the video tower's
-                temporal [16*257, 8]), against its plain PyTorch version in
-                f32 and bf16, each launch counted under its own name;
+                temporal [16*257, 8]; train3, recorded: K1 and K3 at
+                [64, 257], K2(b) and K4 unmasked at [8, 593], K2(c) and K4
+                block-diagonal at [8*257, 8], K2(a) at B=8; each backward
+                through torch.autograd.grad), against its plain PyTorch
+                version in f32 and bf16, each launch counted under its own
+                name;
                 times the kernel, the plain version and one PyTorch library
                 call doing the same work (CUDA events, median of 7 runs of
                 20 launches, inputs rotated through enough copies to miss
@@ -46,10 +50,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 outputs are finite and the probs sum to 1, and times
                 samples/s. Then holds the card's f32 logits for 2 rows
                 against the CPU's plain path.
-  7. summary  - a `{"kernels": [...]}` line, the card's name and power limit,
+  7. train3   - bench.py's train3 workload: eval3's model trained (B=8,
+                f32 video [8, 3, 8, 224, 224] and audio [8, 3, 112, 1036],
+                ids without a mask, missing codes from {0, 1, 2, 3}, frozen
+                leaves stored in bf16, bf16 encoder, LoRA on the temporal
+                and the audio attention, the text tower in full, Adam at lr
+                1e-4, head dropout 0.1, no remat) through make_train_step
+                at accum_steps 1; checks that every step launched K1, K3,
+                K2(b), K4 unmasked, K2(c) and K4 block-diagonal 24 times
+                each and K2(a) 12 times, that the losses are finite, that no
+                frozen leaf moved (the video tower's spatial attention among
+                them) and the watched trainable ones did, and times
+                samples/s and peak memory. Then holds the card's f32
+                gradients for 2 complete rows at full depth (LoRA B
+                non-zero, TF32 off) against the CPU's plain path.
+  8. summary  - a `{"kernels": [...]}` line, the card's name and power limit,
                 and as the last line {"ok": true, "device": {...}}.
---profile adds one torch.profiler-traced step of each of eval, train and
-eval3 and prints device time by kernel.
+--profile adds one torch.profiler-traced step of each of eval, train, eval3
+and train3 and prints device time by kernel.
 """
 from __future__ import annotations
 
@@ -74,14 +92,15 @@ L2_BYTES = 50e6
 B = 64                      # the flagship batch (bench.py eval and train)
 ACCUM = 4                   # bench.py's train microbatches (4 x 16)
 B3 = 16                     # bench.py's eval3 batch
+B3T = 8                     # bench.py's train3 batch
 FRAMES = 8                  # frames per video (languagebind_large("video"))
 LR = 1e-4                   # bench.py's train learning rate
 STEPS = 5
 TOL = {torch.float32: (1e-4, 0.0),      # summation order only
        torch.bfloat16: (2e-2, 2 ** -7)}  # P rounded at other places; out ulp
-# K3 vs its plain version, ||got - ref|| / ||ref|| per gradient. f32:
-# summation order only. bf16: P and dS rounded to bf16 as product operands,
-# D from the bf16 output, each gradient rounded to bf16.
+# K3 and K4 vs their plain versions, ||got - ref|| / ||ref|| per gradient.
+# f32: summation order only. bf16: P and dS rounded to bf16 as product
+# operands (K3: D from the bf16 output), each gradient rounded to bf16.
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LOGITS_F32_ATOL = 1e-3                  # card f32 vs CPU f32, 24 + 12 layers
 GRADS_F32_RTOL = 1e-3                   # the same, for the gradients
@@ -190,8 +209,11 @@ def kernel_phase(dev, rng):
     eval K1 (no log-sum-exp) and K2(a) with the key bias at B=64; train K1
     (recorded, writing the log-sum-exp), K3 through autograd and K2(a)
     causal without a key bias at B=16; eval3 K2(a) without a key bias at
-    B=16, K2(b) at [16, 593] and K2(c) at [16*257, 8]. Times each at the
-    shape of the path it is named for (K1 and K2(a): eval)."""
+    B=16, K2(b) at [16, 593] and K2(c) at [16*257, 8]; train3, all
+    recorded, K1 and K3 at [64, 257], K2(b) and K4 unmasked at [8, 593],
+    K2(c) and K4 block-diagonal at [8*257, 8] and K2(a) without a key bias
+    at B=8. Times each at the shape of the path it is named for (K1 and
+    K2(a): eval)."""
     from missm_tpu_torch.kernels import attention as K
 
     neg = torch.finfo(torch.float32).min
@@ -218,7 +240,8 @@ def kernel_phase(dev, rng):
              plain=lambda q, k, v: K.attention_plain(
                  q, k, v, 12, causal=True, kbias=kbias),
              more={"train": dict(causal_ids, b=b_train, recorded=True),
-                   "eval3": dict(causal_ids, b=B3, recorded=False)}),
+                   "eval3": dict(causal_ids, b=B3, recorded=False),
+                   "train3": dict(causal_ids, b=B3T, recorded=True)}),
         dict(name="attention_unsplit", path="eval3", b=B3, n=593, heads=16,
              kbias=None,
              replaces=f"{flash}:277 (fused_attention, unmasked, through "
@@ -292,100 +315,145 @@ def kernel_phase(dev, rng):
               f"({row['bound_by']})", flush=True)
         del sets, cyc
         rows.append(row)
-    rows.append(backward_row(dev, gen, rows[0]))
+    by_name = {row["name"]: row for row in rows}
+    for spec in backward_specs():
+        rows.append(backward_row(dev, gen, spec, by_name[spec["forward"]]))
     for row in rows:
         summarise_checks(row)
     return rows
 
 
-def backward_row(dev, gen, k1_row):
-    """K3 at the train step's shape, one microbatch of 16 images. Its check
-    goes through the wrappers as the train step does: K.attention on inputs
-    that require grad (K1 writing the log-sum-exp, checked into K1's train
-    row), then torch.autograd.grad, which launches K3."""
+def backward_specs():
+    """The backward kernels, each with the forward wrapper whose gradient it
+    is and the batch each train path gives it ({path: b}, the first timed):
+    K3 on the flagship train step's microbatch of 16 images and train3's 64
+    video frames; K4 unmasked on train3's audio tower, [8, 593]; K4
+    block-diagonal on train3's temporal attention, 8 videos x 257 tokens of
+    8 frames. The kernel alone is timed from what the forward saved."""
     from missm_tpu_torch.kernels import attention as K
 
-    b, n, heads, hd = B // ACCUM, 257, 16, 64
-    d = heads * hd
-    shape = f"B={b} N={n} H={heads} hd={hd}"
-    row = {"name": "attention_bwd", "route": "cuda",
-           "source": "missm_tpu_torch/csrc/attention_bwd.cu",
-           "replaces": "missm_tpu/kernels/flash_attention.py:512 "
-                       "(fused_attention_cls_bwd)",
-           "shape": shape, "checks": {"train": {"shape": shape}}}
-    fwd = k1_row["checks"]["train"] = {"shape": shape, "recorded": True}
-    check = row["checks"]["train"]
+    flash = "missm_tpu/kernels/flash_attention.py"
 
-    for dtype, tag in DTYPES:
-        q, k, v, g = (torch.randn(b, n, d, generator=gen, device=dev)
-                      .to(dtype) for _ in range(4))
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        before = dict(K.LAUNCHES)
-        out = K.attention(*leaves, heads)
-        got = torch.autograd.grad(out, leaves, g)
-        torch.cuda.synchronize()
-        via = {name: K.LAUNCHES[name] - before[name] for name in before}
-        ref_out = K.attention_plain(q, k, v, heads)
-        ref = K.attention_bwd_plain(q, k, v, g, heads)
-
-        err = (out.detach().float() - ref_out.float()).abs()
-        atol, rtol = TOL[dtype]
-        if (err > atol + rtol * ref_out.float().abs()).any():
-            raise AssertionError(f"attention train {tag}: kernel disagrees "
-                                 f"with the plain version, max abs err "
-                                 f"{err.max().item():.3e}")
-        fwd[f"max_abs_err_{tag}"] = err.max().item()
-
-        rel = max(((x.float() - r.float()).norm() / r.float().norm()).item()
-                  for x, r in zip(got, ref))
-        abs_err = max((x.float() - r.float()).abs().max().item()
-                      for x, r in zip(got, ref))
-        if not (rel <= GRAD_TOL[dtype]
-                and via == dict(dict.fromkeys(via, 0), attention=1,
-                                attention_bwd=1)
-                and all(torch.isfinite(x).all() for x in got)):
-            raise AssertionError(f"attention_bwd {tag}: kernel disagrees with "
-                                 f"the plain version, relative error {rel:.3e}"
-                                 f" (limit {GRAD_TOL[dtype]}), launches {via}")
-        check[f"max_abs_err_{tag}"] = abs_err
-        check[f"rel_err_{tag}"] = rel
-    print(f"check attention train [{shape}, recorded=True]: max abs err f32 "
-          f"{fwd['max_abs_err_f32']:.2e} bf16 {fwd['max_abs_err_bf16']:.2e}",
-          flush=True)
-
-    # timing, bf16. The function needs q, k, v and dO read and dq, dk, dv
-    # written; the saved O and log-sum-exp are extra reads of this design
-    # and not counted.
-    io_bytes = 7 * b * n * d * 2
-    copies = max(1, math.ceil(2 * L2_BYTES / io_bytes))
-
-    def inputs():
-        q, k, v, g = (torch.randn(b, n, d, generator=gen, device=dev)
-                      .to(torch.bfloat16) for _ in range(4))
-        out, lse = K._launch(q, k, v, None, heads, causal=False,
-                             want_lse=True)
+    def with_lse(q, k, v, g):
+        out, lse = K._launch(q, k, v, None, 16, causal=False, want_lse=True)
         return q, k, v, out, lse, g
 
-    sets = [inputs() for _ in range(copies)]
+    unsplit = dict(run=lambda q, k, v: K.attention(q, k, v, 16),
+                   plain=lambda q, k, v: K.attention_plain(q, k, v, 16),
+                   plain_bwd=K.attention_bwd_plain, saved=with_lse,
+                   kernel=lambda *x: K._launch_bwd(*x, 16))
+    return [
+        dict(unsplit, name="attention_bwd", forward="attention", n=257,
+             batches={"train": B // ACCUM, "train3": B3T * FRAMES},
+             source="attention_bwd.cu",
+             replaces=f"{flash}:512 (fused_attention_cls_bwd)"),
+        dict(unsplit, name="attention_unsplit_bwd",
+             forward="attention_unsplit", n=593, batches={"train3": B3T},
+             source="attention_bwd.cu",
+             replaces=f"{flash}:760 (fused_attention_bwd, unmasked, through "
+                      f"fused_attention_ad's _fa_bwd)"),
+        dict(name="short_attention_bwd", forward="short_attention", n=FRAMES,
+             batches={"train3": B3T * 257}, source="short_attention_bwd.cu",
+             replaces=f"{flash}:760 (fused_attention_bwd, block_diag=8, "
+                      f"through missm_tpu/ops/attention.py:176 "
+                      f"short_attention)",
+             run=lambda q, k, v: K.short_attention(q, k, v, 16),
+             plain=lambda q, k, v: K.short_attention_plain(q, k, v, 16),
+             plain_bwd=K.short_attention_bwd_plain,
+             saved=lambda q, k, v, g: (q, k, v, g),
+             kernel=lambda *x: K._launch_short_bwd(*x, 16)),
+    ]
+
+
+def backward_row(dev, gen, s, fwd_row):
+    """A backward kernel at each train path's shape. Its check goes through
+    the wrappers as the train step does: the forward wrapper on inputs that
+    require grad (checked into the forward's row under the same path), then
+    torch.autograd.grad, which launches the backward kernel; each must
+    launch once, under its own count. Timed at the first path's shape."""
+    from missm_tpu_torch.kernels import attention as K
+
+    n, heads, hd = s["n"], 16, 64
+    d = heads * hd
+    b = next(iter(s["batches"].values()))
+    row = {"name": s["name"], "route": "cuda",
+           "source": "missm_tpu_torch/csrc/" + s["source"],
+           "replaces": s["replaces"], "shape": f"B={b} N={n} H={heads} hd={hd}",
+           "checks": {}}
+    for path, bp in s["batches"].items():
+        shape = f"B={bp} N={n} H={heads} hd={hd}"
+        fwd = fwd_row["checks"][path] = {"shape": shape, "recorded": True}
+        check = row["checks"][path] = {"shape": shape}
+        for dtype, tag in DTYPES:
+            q, k, v, g = (torch.randn(bp, n, d, generator=gen, device=dev)
+                          .to(dtype) for _ in range(4))
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            before = dict(K.LAUNCHES)
+            out = s["run"](*leaves)
+            got = torch.autograd.grad(out, leaves, g)
+            torch.cuda.synchronize()
+            via = {name: K.LAUNCHES[name] - before[name] for name in before}
+            with torch.no_grad():
+                ref_out = s["plain"](q, k, v)
+                ref = s["plain_bwd"](q, k, v, g, heads)
+
+            err = (out.detach().float() - ref_out.float()).abs()
+            atol, rtol = TOL[dtype]
+            if (err > atol + rtol * ref_out.float().abs()).any():
+                raise AssertionError(f"{s['forward']} {path} {tag}: kernel "
+                                     f"disagrees with the plain version, max "
+                                     f"abs err {err.max().item():.3e}")
+            fwd[f"max_abs_err_{tag}"] = err.max().item()
+
+            rel = max(((x.float() - r.float()).norm()
+                       / r.float().norm()).item() for x, r in zip(got, ref))
+            abs_err = max((x.float() - r.float()).abs().max().item()
+                          for x, r in zip(got, ref))
+            if not (rel <= GRAD_TOL[dtype]
+                    and via == dict(dict.fromkeys(via, 0),
+                                    **{s["forward"]: 1, s["name"]: 1})
+                    and all(torch.isfinite(x).all() for x in got)):
+                raise AssertionError(
+                    f"{s['name']} {path} {tag}: kernel disagrees with the "
+                    f"plain version, relative error {rel:.3e} (limit "
+                    f"{GRAD_TOL[dtype]}), launches {via}")
+            check[f"max_abs_err_{tag}"] = abs_err
+            check[f"rel_err_{tag}"] = rel
+            del q, k, v, g, leaves, out, got, ref_out, ref
+        print(f"check {s['forward']} {path} [{shape}, recorded=True]: max abs "
+              f"err f32 {fwd['max_abs_err_f32']:.2e} bf16 "
+              f"{fwd['max_abs_err_bf16']:.2e}; {s['name']} rel err f32 "
+              f"{check['rel_err_f32']:.2e} bf16 {check['rel_err_bf16']:.2e} "
+              f"(max abs {check['max_abs_err_f32']:.2e} / "
+              f"{check['max_abs_err_bf16']:.2e})", flush=True)
+
+    # timing, bf16. The function needs q, k, v and dO read and dq, dk, dv
+    # written; what the forward saved beyond q, k, v (K3's output and
+    # log-sum-exp) is an extra read of that design and not counted.
+    io_bytes = 7 * b * n * d * 2
+    copies = max(1, math.ceil(2 * L2_BYTES / io_bytes))
+    sets = [s["saved"](*(torch.randn(b, n, d, generator=gen, device=dev)
+                         .to(torch.bfloat16) for _ in range(4)))
+            for _ in range(copies)]
     cyc = itertools.cycle(sets)
 
     def plain():
-        q, k, v, _, _, g = next(cyc)
-        return K.attention_bwd_plain(q, k, v, g, heads)
+        x = next(cyc)
+        return s["plain_bwd"](x[0], x[1], x[2], x[-1], heads)
 
-    # the kernel alone, from the forward's saved output and log-sum-exp
-    row["ms"] = median_ms(lambda: K._launch_bwd(*next(cyc), heads))
+    row["ms"] = median_ms(lambda: s["kernel"](*next(cyc)))
     row["plain_ms"] = median_ms(plain)
 
-    # the yardstick: the backward alone of SDPA, on a kept graph
-    def sdpa_graph(q, k, v, out, lse, g):
+    # the yardstick: the backward alone of SDPA on the same problems ([M, H,
+    # T, hd] for the block-diagonal one), on a kept graph
+    def sdpa_graph(x):
         def heads_first(t):
             return t.view(b, n, heads, hd).transpose(1, 2)
-        leaves = [heads_first(t).detach().requires_grad_() for t in (q, k, v)]
+        leaves = [heads_first(t).detach().requires_grad_() for t in x[:3]]
         o = torch.nn.functional.scaled_dot_product_attention(*leaves)
-        return o, leaves, heads_first(g)
+        return o, leaves, heads_first(x[-1])
 
-    graphs = itertools.cycle([sdpa_graph(*x) for x in sets])
+    graphs = itertools.cycle([sdpa_graph(x) for x in sets])
 
     def sdpa_backward():
         o, leaves, g = next(graphs)
@@ -394,18 +462,17 @@ def backward_row(dev, gen, k1_row):
     row["library_ms"] = median_ms(sdpa_backward)
 
     # S recomputed, dV, dP, dQ, dK: 5 products of 2 N^2 hd per (batch, head)
+    # (N = T, the pairs within each instance, for the block-diagonal one)
     flops = 10 * b * heads * n * n * hd
     t_bytes = io_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOP_PER_S * 1e3
     row["bound_ms"] = max(t_bytes, t_ops)
     row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    print(f"kernel attention_bwd [{shape}]: rel err f32 "
-          f"{check['rel_err_f32']:.2e} bf16 {check['rel_err_bf16']:.2e} (max "
-          f"abs {check['max_abs_err_f32']:.2e} / "
-          f"{check['max_abs_err_bf16']:.2e}) | bf16 kernel {row['ms']:.4f} "
-          f"ms, plain {row['plain_ms']:.4f} ms, sdpa backward "
+    print(f"kernel {s['name']} [{row['shape']}]: bf16 kernel "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa backward "
           f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
           f"({row['bound_by']})", flush=True)
+    del sets, cyc, graphs
     return row
 
 
@@ -508,7 +575,7 @@ def slice_phase(dev, rng, card, profile):
     return launches
 
 
-def eval3_config(compute_dtype):
+def eval3_config(compute_dtype, dropout_prob=0.1):
     """bench.py's eval3 model: LanguageBind video and audio towers, the
     language tower being the audio tower's text tower, and the `sum` head."""
     from missm_tpu_torch.core.config import languagebind_large
@@ -521,7 +588,7 @@ def eval3_config(compute_dtype):
         fusion=FusionConfig(fusion_type="sum",
                             modality_types=("language", "video", "audio"),
                             output_dims=10, feature_dims=768, fusion_dim=256,
-                            dropout_prob=0.1),
+                            dropout_prob=dropout_prob),
         compute_dtype=compute_dtype)
 
 
@@ -612,31 +679,248 @@ def eval3_phase(dev, rng, card, profile):
     return launches
 
 
-def train_phase(dev, rng, card, profile):
+def train3_config(compute_dtype, dropout_prob=0.1):
+    """bench.py's train3 model: eval3's towers and head. Differs from
+    bench.py:208-210 in one setting: no remat, where bench.py passes a
+    per-tower spec of named policies (video save_attn_mlp_qkv, audio
+    save_attn_mlp_kern, language save_attn_mlp). Those policies are not
+    ported, and B=8 without remat fits the 80 GB card."""
+    return eval3_config(compute_dtype, dropout_prob)
+
+
+def media(rng, cfg, batch):
+    """Seeded f32 video [batch, 3, frames, H, W] and audio [batch, 3, mel
+    bins, target length] at the shapes the config's towers take."""
+    video, audio = (t.vision for _, t in cfg.towers)
+    return {"video": rng.standard_normal(
+                (batch, 3, video.num_frames, *video.image_size))
+            .astype(np.float32),
+            "audio": rng.standard_normal((batch, 3, *audio.image_size))
+            .astype(np.float32)}
+
+
+def timed_train(name, step, state, batch, params, cfg, moving, expect,
+                card):
+    """Two warm-up steps of `step` on `batch` (data, labels, missing, lr,
+    generator), then STEPS timed ones with every launch count from 0.
+    Checks that each timed step launched exactly `expect` ({count: launches
+    per step}, every other count 0), that every loss is finite, that no
+    frozen leaf of `params` moved and that every leaf of `moving` ({label:
+    tensor}) did. Prints the rate and peak memory; returns (state, the
+    launch counts of the timed steps)."""
     from missm_tpu_torch.kernels import attention as K
-    from missm_tpu_torch.models import finetune
-    from missm_tpu_torch.train.step import init_train_state, make_train_step
     from missm_tpu_torch.train.trainability import (FROZEN, leaves,
                                                     param_labels)
 
-    cfg = flagship_config("bfloat16")
+    frozen = [(t, t.clone()) for t, lab in zip(
+        leaves(params), leaves(param_labels(params, cfg))) if lab == FROZEN]
+    before = {k: t.clone() for k, t in moving.items()}
+    losses = []
     t0 = time.perf_counter()
+    for _ in range(2):  # warm-up: cuBLAS plans, Adam state
+        state, m = step(state, *batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    print(f"{name} warm-up {time.perf_counter() - t0:.1f} s", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        state, m = step(state, *batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    want = dict(dict.fromkeys(launches, 0),
+                **{k: n * STEPS for k, n in expect.items()})
+    if launches != want:
+        raise AssertionError(f"{name} kernel launches {launches}, expected "
+                             f"{want}")
+    losses = torch.stack(losses).tolist()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite {name} loss: {losses}")
+    moved = sum(not torch.equal(t, t0_) for t, t0_ in frozen)
+    if moved:
+        raise AssertionError(f"{moved} frozen {name} leaves moved")
+    still = [k for k, t in moving.items() if torch.equal(t, before[k])]
+    if still:
+        raise AssertionError(f"trainable {name} leaves did not move: {still}")
+    print(f"{name}: {STEPS} steps of B={len(batch[1])} in {dt:.4f} s = "
+          f"{len(batch[1]) * STEPS / dt:.2f} samples/s, "
+          f"{dt / STEPS * 1e3:.3f} ms/step, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, losses "
+          f"{[round(x, 4) for x in losses]}; {len(frozen)} frozen leaves "
+          f"unchanged, {len(moving)} trainable leaves moved [{card}]",
+          flush=True)
+    return state, launches
+
+
+def grad_check(dev, name, cfg, params, batch, watched, expect):
+    """f32 gradients of the leaves `watched(params)` ({label: leaf}) on the
+    card (TF32 off) against the CPU's plain path, for `batch` (data, labels,
+    missing). The card's run must launch `expect` ({count: launches})."""
+    from missm_tpu_torch.kernels import attention as K
+    from missm_tpu_torch.models import finetune
+    from missm_tpu_torch.train.step import compute_loss, partition_trainable
+
+    def grads(p, device):
+        partition_trainable(p, cfg)
+        loss, _ = compute_loss(p, None, cfg, *batch, None, device=device)
+        loss.backward()
+        return loss.item(), {k: t.grad.cpu() for k, t in watched(p).items()}
+
+    card = finetune.tree_map(lambda t: t.detach().to(dev), params)
+    before = dict(K.LAUNCHES)
+    with no_tf32():
+        loss_gpu, g_gpu = grads(card, dev)
+        torch.cuda.synchronize()
+    via = {k: v - before[k] for k, v in K.LAUNCHES.items()}
+    del card
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = grads(params, "cpu")
+    cpu_s = time.perf_counter() - t0
+    rel = {k: ((g_gpu[k] - g_cpu[k]).norm() / g_cpu[k].norm()).item()
+           for k in g_cpu}
+    depth = [t.vision.num_layers for _, t in cfg.towers]
+    depth.append(cfg.towers[-1][1].text.num_layers)
+    towers = "/".join([m for m, _ in cfg.towers] + ["text"])
+    print(f"{name} f32 grads, card vs CPU plain ({len(batch[1])} rows, codes "
+          f"{batch[2].tolist()}, {'/'.join(map(str, depth))} {towers} layers, "
+          f"CPU {cpu_s:.1f} s, kernels on the card {via}): loss "
+          f"{loss_gpu:.6f} vs {loss_cpu:.6f}; relative error by leaf "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          + f" (limit {GRADS_F32_RTOL})", flush=True)
+    if (any(via[k] != n for k, n in expect.items())
+            or not all(v <= GRADS_F32_RTOL for v in rel.values())):
+        raise AssertionError(f"card f32 {name} gradients disagree with the "
+                             f"CPU's")
+
+
+def train3_phase(dev, rng, card, profile):
+    from missm_tpu_torch.models import finetune
+    from missm_tpu_torch.train.step import init_train_state, make_train_step
+    from missm_tpu_torch.train.trainability import (FROZEN, cast_frozen_params,
+                                                    leaves, param_labels)
+
+    cfg = train3_config("bfloat16")
+    # bench.py's frozen_bf16=True: the frozen leaves stored in bf16
+    params = cast_frozen_params(
+        finetune.init_model_params(cfg, seed=0, device=dev), cfg)
+    # the video tower's spatial attention has no LoRA: all of it frozen
+    labels = param_labels(params, cfg)["encoder"]["video"]["vision"]
+    if any(lab != FROZEN
+           for lab in leaves([b["attn"] for b in labels["blocks"]])):
+        raise AssertionError("a video spatial attention leaf is not frozen")
+    # bench.py's train3 batch: ids without a mask, f32 media
+    ids, _ = text_batch(rng, B3T, vary_length=False)
+    data = {"language": torch.as_tensor(ids, device=dev),
+            **{m: torch.as_tensor(x, device=dev)
+               for m, x in media(rng, cfg, B3T).items()}}
+    batch = (data, torch.as_tensor(rng.integers(0, 10, B3T), device=dev),
+             torch.as_tensor(rng.choice([0, 1, 2, 3], B3T), device=dev), LR,
+             torch.Generator(device=dev).manual_seed(0))
+    state, tx = init_train_state(params, cfg)
+    step = make_train_step(cfg, tx, accum_steps=1, device=dev)
+
+    video, audio = (params["encoder"][m]["vision"] for m in ("video", "audio"))
+    moving = {
+        "video block 0 tattn q lora_b": video["blocks"][0]["tattn"]["q"]
+        ["lora_b"],
+        "video last block tattn out lora_b": video["blocks"][-1]["tattn"]
+        ["out"]["lora_b"],
+        "audio block 0 attn q lora_b": audio["blocks"][0]["attn"]["q"]
+        ["lora_b"],
+        "video patch_embedding": video["patch_embedding"]["w"],
+        "audio patch_embedding": audio["patch_embedding"]["w"],
+        "text block 0 attn q w": params["encoder"]["language"]["text"]
+        ["blocks"][0]["attn"]["q"]["w"],
+        **{f"fusion proj {m} w": params["fusion"]["proj"][m]["w"]
+           for m in ("language", "video", "audio")}}
+    video_cfg, audio_cfg = (t.vision for _, t in cfg.towers)
+    # no remat: each forward kernel once per layer and each backward once;
+    # the text tower's causal attention has a plain backward
+    state, launches = timed_train(
+        "train3", step, state, batch, params, cfg, moving,
+        dict(attention=video_cfg.num_layers,
+             attention_bwd=video_cfg.num_layers,
+             short_attention=video_cfg.num_layers,
+             short_attention_bwd=video_cfg.num_layers,
+             attention_unsplit=audio_cfg.num_layers,
+             attention_unsplit_bwd=audio_cfg.num_layers,
+             causal_attention=cfg.towers[-1][1].text.num_layers), card)
+
+    if profile:
+        profile_step("train3", lambda: step(state, *batch))
+    del state, tx, step, params, data, batch, moving, video, audio
+    torch.cuda.empty_cache()
+    train3_grads(dev, rng)
+    return launches
+
+
+def train3_grads(dev, rng):
+    """train3's f32 gradients, 2 rows at full depth, both with every
+    modality (so every tower reaches the loss), LoRA B non-zero on the
+    temporal and the audio attention so the LoRA A gradients are too."""
+    from missm_tpu_torch.models import finetune
+
+    cfg = train3_config("float32", dropout_prob=0.0)
+    params = finetune.init_model_params(cfg, seed=1, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    for mod, attn in (("video", "tattn"), ("audio", "attn")):
+        for block in params["encoder"][mod]["vision"]["blocks"]:
+            for proj in block[attn].values():
+                proj["lora_b"].normal_(0.0, 0.01, generator=gen)
+    ids, _ = text_batch(rng, 2, vary_length=True)
+    batch = ({"language": ids, **media(rng, cfg, 2)}, np.array([3, 8]),
+             np.array([0, 0]))
+
+    def watched(p):
+        v, a = (p["encoder"][m]["vision"] for m in ("video", "audio"))
+        return {
+            "video block 0 tattn q lora_a": v["blocks"][0]["tattn"]["q"]
+            ["lora_a"],
+            "video block 0 tattn q lora_b": v["blocks"][0]["tattn"]["q"]
+            ["lora_b"],
+            "video last block tattn out lora_a": v["blocks"][-1]["tattn"]
+            ["out"]["lora_a"],
+            "video last block tattn v lora_b": v["blocks"][-1]["tattn"]["v"]
+            ["lora_b"],
+            "audio block 0 attn q lora_a": a["blocks"][0]["attn"]["q"]
+            ["lora_a"],
+            "audio last block attn k lora_b": a["blocks"][-1]["attn"]["k"]
+            ["lora_b"],
+            "video patch_embedding": v["patch_embedding"]["w"],
+            "audio patch_embedding": a["patch_embedding"]["w"],
+            "text block 0 q w": p["encoder"]["language"]["text"]["blocks"][0]
+            ["attn"]["q"]["w"],
+            **{f"fusion proj {m} w": p["fusion"]["proj"][m]["w"]
+               for m in ("language", "video", "audio")}}
+
+    video, audio = (t.vision.num_layers for _, t in cfg.towers)
+    grad_check(dev, "train3", cfg, params, batch, watched,
+               dict(short_attention_bwd=video, attention_bwd=video,
+                    attention_unsplit_bwd=audio))
+
+
+def train_phase(dev, rng, card, profile):
+    from missm_tpu_torch.models import finetune
+    from missm_tpu_torch.train.step import init_train_state, make_train_step
+
+    cfg = flagship_config("bfloat16")
     params = finetune.init_model_params(cfg, seed=0, device=dev)
     # bench.py's train batch: token ids without a mask, f32 images
     ids, _ = text_batch(rng, B, vary_length=False)
     data = {"language": torch.as_tensor(ids, device=dev),
-            "image": torch.as_tensor(
-                rng.standard_normal((B, 3, 224, 224)).astype(np.float32),
-                device=dev)}
-    labels = torch.as_tensor(rng.integers(0, 10, B), device=dev)
-    missing = torch.as_tensor(rng.choice([0, 1, 4], B), device=dev)
+            "image": torch.as_tensor(rng.standard_normal(
+                (B, 3, *cfg.towers[0][1].vision.image_size))
+                .astype(np.float32), device=dev)}
+    batch = (data, torch.as_tensor(rng.integers(0, 10, B), device=dev),
+             torch.as_tensor(rng.choice([0, 1, 4], B), device=dev), LR,
+             torch.Generator(device=dev).manual_seed(0))
     state, tx = init_train_state(params, cfg)
     step = make_train_step(cfg, tx, accum_steps=ACCUM, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
 
-    flat, labels_flat = leaves(params), leaves(param_labels(params, cfg))
-    frozen = [(t, t.clone()) for t, lab in zip(flat, labels_flat)
-              if lab == FROZEN]
     blocks = params["encoder"]["image"]["vision"]["blocks"]
     moving = {"vision block 0 q lora_b": blocks[0]["attn"]["q"]["lora_b"],
               "vision last block out lora_b": blocks[-1]["attn"]["out"]["lora_b"],
@@ -645,65 +929,24 @@ def train_phase(dev, rng, card, profile):
               "patch_embedding": params["encoder"]["image"]["vision"]
               ["patch_embedding"]["w"],
               "fusion proj image w": params["fusion"]["proj"]["image"]["w"]}
-    before = {k: t.clone() for k, t in moving.items()}
-
-    losses = []
-    for _ in range(2):  # warm-up: cuBLAS plans, Adam state
-        state, m = step(state, data, labels, missing, LR, gen)
-        losses.append(m["loss"])
-    torch.cuda.synchronize()
-    print(f"train set-up {time.perf_counter() - t0:.1f} s", flush=True)
-
-    torch.cuda.reset_peak_memory_stats()
-    K.reset_launches()
-    t0 = time.perf_counter()
-    for _ in range(STEPS):
-        state, m = step(state, data, labels, missing, LR, gen)
-        losses.append(m["loss"])
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
     n_vision, n_text = layers(cfg)
-    # every other count 0: N=257 takes the CLS-split route, so nothing
-    # reaches attention_unsplit_bwd (K4's unmasked math, unchecked here)
-    expect = dict(dict.fromkeys(launches, 0),
-                  attention=n_vision * ACCUM * STEPS,
-                  attention_bwd=n_vision * ACCUM * STEPS,
-                  causal_attention=n_text * ACCUM * STEPS)
-    if launches != expect:
-        raise AssertionError(f"train kernel launches {launches}, expected "
-                             f"{expect}")
-    losses = torch.stack(losses)
-    if not torch.isfinite(losses).all():
-        raise AssertionError(f"non-finite train loss: {losses.tolist()}")
-    moved_frozen = sum(not torch.equal(t, t0_) for t, t0_ in frozen)
-    if moved_frozen:
-        raise AssertionError(f"{moved_frozen} frozen leaves moved")
-    still = [k for k, t in moving.items() if torch.equal(t, before[k])]
-    if still:
-        raise AssertionError(f"trainable leaves did not move: {still}")
-    rate = B * STEPS / dt
-    print(f"slice train: {STEPS} steps of B={B} ({ACCUM} x {B // ACCUM}) in "
-          f"{dt:.4f} s = {rate:.2f} samples/s, {dt / STEPS * 1e3:.3f} "
-          f"ms/step, peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          f" GiB, losses {[round(x, 4) for x in losses.tolist()]}; "
-          f"{len(frozen)} frozen leaves unchanged, {len(moving)} trainable "
-          f"leaves moved [{card}]", flush=True)
+    # N=257 takes the CLS-split route, so nothing reaches the unsplit counts
+    state, launches = timed_train(
+        f"train ({ACCUM} x {B // ACCUM})", step, state, batch, params, cfg,
+        moving, dict(attention=n_vision * ACCUM, attention_bwd=n_vision * ACCUM,
+                     causal_attention=n_text * ACCUM), card)
 
     if profile:
-        profile_step("train", lambda: step(state, data, labels, missing, LR,
-                                           gen))
-    del state, tx, step, frozen, params
-    grad_check(dev, rng)
+        profile_step("train", lambda: step(state, *batch))
+    del state, tx, step, params, data, batch, moving, blocks
+    flagship_grads(dev, rng)
     return launches
 
 
-def grad_check(dev, rng):
-    """f32 gradients on the card (TF32 off) against the CPU's plain path,
-    4 rows at full depth, LoRA B non-zero so the LoRA A gradients are too."""
-    from missm_tpu_torch.kernels import attention as K
+def flagship_grads(dev, rng):
+    """The flagship train step's f32 gradients, 4 rows at full depth, LoRA B
+    non-zero so the LoRA A gradients are too."""
     from missm_tpu_torch.models import finetune
-    from missm_tpu_torch.train.step import compute_loss, partition_trainable
 
     cfg = flagship_config("float32", dropout_prob=0.0)
     params = finetune.init_model_params(cfg, seed=1, device="cpu")
@@ -713,9 +956,11 @@ def grad_check(dev, rng):
         for proj in block["attn"].values():
             proj["lora_b"].normal_(0.0, 0.01, generator=gen)
     ids, mask = text_batch(rng, 4, vary_length=True)
-    data = {"language": {"input_ids": ids, "attention_mask": mask},
-            "image": rng.standard_normal((4, 3, 224, 224)).astype(np.float32)}
-    labels, missing = np.array([1, 5, 7, 2]), np.array([0, 1, 4, 0])
+    batch = ({"language": {"input_ids": ids, "attention_mask": mask},
+              "image": rng.standard_normal(
+                  (4, 3, *cfg.towers[0][1].vision.image_size))
+              .astype(np.float32)},
+             np.array([1, 5, 7, 2]), np.array([0, 1, 4, 0]))
 
     def watched(p):
         b = p["encoder"]["image"]["vision"]["blocks"]
@@ -731,33 +976,8 @@ def grad_check(dev, rng):
             "fusion proj image w": p["fusion"]["proj"]["image"]["w"],
             "fusion proj language w": p["fusion"]["proj"]["language"]["w"]}
 
-    def grads(p, device):
-        partition_trainable(p, cfg)
-        loss, _ = compute_loss(p, None, cfg, data, labels, missing, None,
-                               device=device)
-        loss.backward()
-        return loss.item(), {k: t.grad.cpu() for k, t in watched(p).items()}
-
-    card = finetune.tree_map(lambda t: t.detach().to(dev), params)
-    before = dict(K.LAUNCHES)
-    with no_tf32():
-        loss_gpu, g_gpu = grads(card, dev)
-        torch.cuda.synchronize()
-    via = {k: v - before[k] for k, v in K.LAUNCHES.items()}
-    t0 = time.perf_counter()
-    loss_cpu, g_cpu = grads(params, "cpu")
-    cpu_s = time.perf_counter() - t0
-    rel = {k: ((g_gpu[k] - g_cpu[k]).norm() / g_cpu[k].norm()).item()
-           for k in g_cpu}
-    print(f"slice f32 grads, card vs CPU plain (4 rows, {'/'.join(map(str, layers(cfg)))}"
-          f" vision/text layers, CPU {cpu_s:.1f} s, kernels on the card {via}):"
-          f" loss {loss_gpu:.6f} vs "
-          f"{loss_cpu:.6f}; relative error by leaf "
-          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
-          + f" (limit {GRADS_F32_RTOL})", flush=True)
-    if via["attention_bwd"] != layers(cfg)[0] or not all(
-            v <= GRADS_F32_RTOL for v in rel.values()):
-        raise AssertionError("card f32 gradients disagree with the CPU's")
+    grad_check(dev, "train", cfg, params, batch, watched,
+               dict(attention_bwd=layers(cfg)[0]))
 
 
 def profile_step(name, run):
@@ -776,9 +996,11 @@ def profile_step(name, run):
                if e.device_type == DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
                and not e.key.startswith("Optimizer.")]
-    groups = {"attention kernels": ("attention_bf16", "attention_f32",
+    # first match wins: the backward kernels' symbols (attention_bwd_*,
+    # short_attention_bwd) before the forward ones'
+    groups = {"attention backward kernels": ("attention_bwd",),
+              "attention kernels": ("attention_bf16", "attention_f32",
                                     "short_attention"),
-              "attention backward kernels": ("attention_bwd",),
               "GEMM": ("gemm", "nvjet", "cutlass", "xmma"),
               "layer_norm": ("layer_norm",), "conv": ("conv",)}
     by_group = dict.fromkeys([*groups, "other elementwise/copies"], 0.0)
@@ -803,8 +1025,8 @@ def profile_step(name, run):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one eval, one train and one eval3 step "
-                         "with torch.profiler")
+                    help="also trace one eval, train, eval3 and train3 "
+                         "step with torch.profiler")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -842,7 +1064,8 @@ def main() -> int:
     rows = kernel_phase(dev, rng)
     paths = {"eval": slice_phase(dev, rng, card, args.profile),
              "train": train_phase(dev, rng, card, args.profile),
-             "eval3": eval3_phase(dev, rng, card, args.profile)}
+             "eval3": eval3_phase(dev, rng, card, args.profile),
+             "train3": train3_phase(dev, rng, card, args.profile)}
     for row in rows:
         # launches: over the counted steps of every path that runs it
         row["launches"] = sum(p[row["name"]] for p in paths.values())

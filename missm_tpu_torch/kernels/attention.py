@@ -1,6 +1,6 @@
 """Softmax self-attention: the hand-written CUDA kernels (csrc/attention.cu,
-csrc/attention_bwd.cu, csrc/short_attention.cu), their autograd wrappers and
-their plain PyTorch versions.
+csrc/attention_bwd.cu, csrc/short_attention.cu, csrc/short_attention_bwd.cu),
+their autograd wrappers and their plain PyTorch versions.
 
 The wrappers, by the TPU kernel each takes the place of
 (missm_tpu/kernels/flash_attention.py):
@@ -16,18 +16,17 @@ The wrappers, by the TPU kernel each takes the place of
     everywhere else: the audio tower at N = 593.
   Its gradient is the backward kernel (csrc/attention_bwd.cu), which takes
   the place of K3, `fused_attention_cls_bwd` (`LAUNCHES["attention_bwd"]`),
-  and computes K4's unmasked math, `fused_attention_bwd`, on the other route
-  (`LAUNCHES["attention_unsplit_bwd"]`).
+  on the first route, and of K4, `fused_attention_bwd` unmasked
+  (`LAUNCHES["attention_unsplit_bwd"]`), on the other.
 - `causal_attention` (K2, mode a) takes the place of
   `fused_attention(causal=True, kbias=...)`: causal attention with an
   optional additive key bias [B, 1, N], the text tower's path. Its gradient
   is plain PyTorch, as the JAX package's is einsum (`_fca_bwd`).
 - `short_attention` (K2, mode c) takes the place of
   `fused_attention(block_diag=T)`: attention within each of M instances of
-  T <= 32 tokens, the video tower's temporal attention. Its gradient would
-  be K4, `fused_attention_bwd`, in block-diagonal mode, which is not
-  ported: on a CUDA tensor a call that autograd records raises
-  NotImplementedError (the eval path runs under inference mode).
+  T <= 32 tokens, the video tower's temporal attention. Its gradient is the
+  kernel of csrc/short_attention_bwd.cu (`LAUNCHES["short_attention_bwd"]`),
+  which takes the place of K4, `fused_attention_bwd(block_diag=T)`.
 
 q, k, v and the output are [B, N, H*hd] ([M, T, H*hd] for short_attention).
 Scores, softmax and accumulation are f32; the output has the input's type
@@ -45,7 +44,7 @@ from . import build
 
 LAUNCHES = {"attention": 0, "attention_unsplit": 0, "attention_bwd": 0,
             "attention_unsplit_bwd": 0, "causal_attention": 0,
-            "short_attention": 0}
+            "short_attention": 0, "short_attention_bwd": 0}
 
 _HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)  # instantiated in every .cu
 SHORT_MAX_T = 32  # the longest instance csrc/short_attention.cu takes
@@ -128,8 +127,17 @@ def short_attention_plain(q, k, v, num_heads: int):
 
 def attention_bwd_plain(q, k, v, g, num_heads: int):
     """(dq, dk, dv) of bias-free attention for the output cotangent g: the
-    plain version of the backward kernel (K3)."""
+    plain version of the backward kernel (K3, and K4 unmasked)."""
     return _bwd_plain(q, k, v, g, num_heads)[:3]
+
+
+def short_attention_bwd_plain(q, k, v, g, num_heads: int):
+    """(dq, dk, dv) of attention within each instance of [M, T, H*hd] for
+    the output cotangent g: attention_bwd_plain with the M instances as its
+    batch, every step in f32. The same function as the JAX package's
+    block-diagonal gradient on packed rows (`_einsum_bwd(H, T, ...)`), whose
+    finfo.min mask leaves exactly zero weight across instances."""
+    return attention_bwd_plain(q, k, v, g, num_heads)
 
 
 def causal_attention_bwd_plain(q, k, v, kbias, g, num_heads: int):
@@ -186,21 +194,13 @@ def causal_attention(q, k, v, kbias, num_heads: int):
     return _CausalAttention.apply(q, k, v, kbias, num_heads)
 
 
-_NO_SHORT_BACKWARD = (
-    "short_attention has no CUDA backward yet: its gradient is K4, "
-    "fused_attention_bwd in block-diagonal mode, which is not ported; call "
-    "it without autograd recording (inference mode or no_grad)")
-
-
 def short_attention(q, k, v, num_heads: int):
     """Attention within each instance of q, k, v [M, T, H*hd], T <= 32;
-    K2 mode c forward. On CUDA tensors it has no backward, and a call that
-    autograd records raises."""
+    K2 mode c forward, K4 block-diagonal backward. Only a recorded call
+    keeps q, k and v for the backward."""
     if q.device.type == "cpu":
         return short_attention_plain(q, k, v, num_heads)
-    if _recorded(q, k, v):
-        raise NotImplementedError(_NO_SHORT_BACKWARD)
-    return _ShortAttention.apply(q, k, v, num_heads)
+    return _ShortAttention.apply(q, k, v, num_heads, _recorded(q, k, v))
 
 
 class _Attention(torch.autograd.Function):
@@ -248,17 +248,23 @@ class _CausalAttention(torch.autograd.Function):
 
 
 class _ShortAttention(torch.autograd.Function):
-    """K2(c) forward; its backward (K4 block-diagonal) is not ported."""
+    """The K2(c) forward kernel, the K4 block-diagonal backward kernel."""
 
     @staticmethod
-    def forward(ctx, q, k, v, num_heads):
+    def forward(ctx, q, k, v, num_heads, recorded):
         out = _launch_short(q, k, v, num_heads)
         LAUNCHES["short_attention"] += 1
+        if recorded:
+            ctx.save_for_backward(q, k, v)
+        ctx.num_heads = num_heads
         return out
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(_NO_SHORT_BACKWARD)
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = _launch_short_bwd(q, k, v, g.contiguous(), ctx.num_heads)
+        LAUNCHES["short_attention_bwd"] += 1
+        return dq, dk, dv, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -313,13 +319,18 @@ def _launch(q, k, v, kbias, num_heads, *, causal, want_lse=False):
     return out, lse
 
 
+def _check_short(num_heads, q, **tensors):
+    """_check, and T <= SHORT_MAX_T tokens per instance."""
+    _check(num_heads, q, **tensors)
+    if not 1 <= q.shape[1] <= SHORT_MAX_T:
+        raise ValueError(f"short attention takes 1 <= T <= {SHORT_MAX_T} "
+                         f"tokens per instance; got T={q.shape[1]}")
+
+
 def _launch_short(q, k, v, num_heads):
     """The K2(c) kernel: attention within each instance of [M, T, H*hd]."""
-    _check(num_heads, q, k=k, v=v)
+    _check_short(num_heads, q, k=k, v=v)
     M, T, D = q.shape
-    if not 1 <= T <= SHORT_MAX_T:
-        raise ValueError(f"short attention takes 1 <= T <= {SHORT_MAX_T} "
-                         f"tokens per instance; got T={T}")
     out = torch.empty_like(q)
     fn = _function("short_attention", "missm_short_attention_forward", 4, 5)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), M, T,
@@ -332,8 +343,28 @@ def _launch_short(q, k, v, num_heads):
     return out
 
 
+def _launch_short_bwd(q, k, v, g, num_heads):
+    """The K4 block-diagonal kernel: (dq, dk, dv) of attention within each
+    instance of [M, T, H*hd] for the output cotangent g."""
+    _check_short(num_heads, q, k=k, v=v, g=g)
+    M, T, D = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    fn = _function("short_attention_bwd", "missm_short_attention_backward",
+                   7, 5)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), M, T, num_heads,
+            D // num_heads, int(q.dtype == torch.bfloat16),
+            (D // num_heads) ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"short attention backward kernel launch failed: "
+                           f"CUDA error {rc}")
+    return dq, dk, dv
+
+
 def _launch_bwd(q, k, v, out, lse, g, num_heads):
-    """The backward kernel (K3): (dq, dk, dv) for the output cotangent g."""
+    """The backward kernel (K3, K4 unmasked): (dq, dk, dv) for the output
+    cotangent g."""
     _check(num_heads, q, k=k, v=v, out=out, g=g)
     B, N, D = q.shape
     if (lse.shape != (B, num_heads, N) or lse.dtype != torch.float32

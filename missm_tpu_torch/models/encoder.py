@@ -36,16 +36,30 @@ def build_encoder_params(towers: Dict[str, dict], order: Sequence[str]):
     return enc
 
 
+def _remat_for(remat, modality):
+    """The remat policy of one tower (missm_tpu/models/encoder.py::_remat_for).
+    `remat` is either one policy (True, False or a policy name) for every
+    tower, or a per-tower spec: a Mapping or a tuple of (modality, policy)
+    pairs, with an optional "default" entry. A tower the spec does not name
+    gets the default, else True (full remat)."""
+    if isinstance(remat, tuple) and remat and isinstance(remat[0], tuple):
+        remat = dict(remat)
+    if isinstance(remat, Mapping):
+        return remat.get(modality, remat.get("default", True))
+    return remat
+
+
 def encode(params, tower_cfgs: Mapping[str, TowerConfig], inputs: Mapping, *,
            use_temp: bool = True, train: bool = False,
-           remat: bool = False) -> Dict[str, torch.Tensor]:
+           remat=False) -> Dict[str, torch.Tensor]:
     """inputs: {'language': input_ids [B, L] or {'input_ids', 'attention_mask'}}
     and/or {modality: pixel_values [B, C, H, W] or video [B, C, T, H, W]}.
 
     Returns {modality: [B, projection_dim]} L2-normalised embeddings, the
     non-language ones times exp(logit_scale) when `use_temp`. Missing-modality
-    masking happens after the encoder, in the fusion head. `remat` applies to
-    every tower (models/tower.py::_block_forward)."""
+    masking happens after the encoder, in the fusion head. `remat` is one
+    policy or a per-tower spec, resolved by _remat_for for each tower and for
+    "language" (models/tower.py::_block_forward)."""
     out = {}
     any_cfg = next(iter(tower_cfgs.values()))
     for name, value in inputs.items():
@@ -55,13 +69,15 @@ def encode(params, tower_cfgs: Mapping[str, TowerConfig], inputs: Mapping, *,
             else:
                 ids, am = value, None
             _, pooled = text_features(params["language"]["text"], any_cfg.text,
-                                      ids, am, remat=remat,
+                                      ids, am,
+                                      remat=_remat_for(remat, "language"),
                                       projection=params["language"]["proj"])
             out[name] = l2_normalize(pooled)
         else:
             pooled = vision_features(params[name]["vision"],
                                      tower_cfgs[name].vision, value,
-                                     train=train, remat=remat,
+                                     train=train,
+                                     remat=_remat_for(remat, name),
                                      projection=params[name]["proj"])
             pooled = l2_normalize(pooled)
             if use_temp:

@@ -25,12 +25,15 @@ class ModelConfig:
     """`towers` maps each non-language modality to its TowerConfig, ordered
     (the language tower is the last entry's text tower). compute_dtype:
     'bfloat16' runs the encoder in bf16; 'float32' for parity tests.
-    remat: True recomputes every transformer block in the backward; the
+    remat: one policy for every tower, or a per-tower spec (a Mapping or a
+    tuple of (modality, policy) pairs, with an optional "default"; a tower
+    it does not name gets True), as encoder._remat_for resolves it. True
+    recomputes every transformer block of the tower in the backward; the
     JAX package's named policies raise NotImplementedError."""
     towers: Tuple[Tuple[str, TowerConfig], ...]
     fusion: FusionConfig
     use_temp: bool = True
-    remat: bool | str = False
+    remat: bool | str | tuple | Mapping = False
     compute_dtype: str = "float32"
 
     @property

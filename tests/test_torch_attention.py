@@ -6,8 +6,9 @@ are held against the Pallas kernels they replace, run in interpret mode
 (missm_tpu.kernels.flash_attention.fused_attention_cls for K1,
 fused_attention(causal=True, kbias=...) for K2 mode a, fused_attention
 unmasked for K2 mode b, fused_attention(block_diag=T) on packed rows for K2
-mode c, fused_attention_cls_bwd for K3), the causal backward against the JAX
-package's einsum gradient, and the port's multi_head_attention and
+mode c, fused_attention_cls_bwd for K3, fused_attention_bwd unmasked and in
+block-diagonal mode on packed rows for K4), the causal backward against the
+JAX package's einsum gradient, and the port's multi_head_attention and
 short_attention, forward and gradients, against the JAX ones (einsum
 branches on the CPU). All in f32 with the tolerances of
 tests/test_flash_attention.py. The kernels themselves are held against the
@@ -20,8 +21,9 @@ import pytest
 import torch
 
 from missm_tpu.kernels import flash_attention as jfa
-from missm_tpu.kernels.flash_attention import (_einsum_reference,
+from missm_tpu.kernels.flash_attention import (_einsum_bwd, _einsum_reference,
                                                fused_attention,
+                                               fused_attention_bwd,
                                                fused_attention_cls,
                                                fused_attention_cls_bwd)
 from missm_tpu.ops import attention as jattn
@@ -181,6 +183,44 @@ def test_attention_bwd_plain_matches_cls_split_bwd_kernel(rng, n, heads):
                                    rtol=BWD_RTOL, err_msg=f"d{name}")
 
 
+@pytest.mark.parametrize("n", [97, 593])
+def test_unsplit_attention_bwd_plain_matches_unmasked_bwd_kernel(rng, n):
+    """K4 unmasked: where the CLS split does not apply (the audio tower's
+    N = 593), the JAX package's gradient is fused_attention_bwd without a
+    mask; the port's is the K3 kernel's, whose plain version this is."""
+    heads = 2
+    q, k, v, g = _qkv(rng, 1, n, heads * 64) + [
+        rng.standard_normal((1, n, heads * 64)).astype(np.float32)]
+    want = fused_attention_bwd(*(jnp.asarray(a) for a in (q, k, v, g)), heads,
+                               interpret=True)
+    got = kernels.attention_bwd_plain(*(torch.from_numpy(a)
+                                        for a in (q, k, v, g)), heads)
+    for name, x, w in zip("qkv", got, want):
+        np.testing.assert_allclose(x.numpy(), np.asarray(w), atol=BWD_ATOL,
+                                   rtol=BWD_RTOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("m", [16, 48])
+def test_short_attention_bwd_plain_matches_block_diag_bwd_kernel(rng, m):
+    """K4 block-diagonal: the per-instance gradient of [M, T, D] against the
+    TPU kernel's block-diagonal mode on the packed rows (16 instances of
+    T=8 per 128-token row) and against _einsum_bwd, the JAX package's
+    gradient off the TPU, on the same rows."""
+    heads, hd, t = 2, 64, 8
+    q, k, v, g = _qkv(rng, m, t, heads * hd) + [
+        rng.standard_normal((m, t, heads * hd)).astype(np.float32)]
+    packed = [_packed(a, t) for a in (q, k, v, g)]
+    got = kernels.short_attention_bwd_plain(
+        *(torch.from_numpy(a) for a in (q, k, v, g)), heads)
+    for ref in (fused_attention_bwd(*packed, heads, block_diag=t,
+                                    interpret=True),
+                _einsum_bwd(heads, t, tuple(packed[:3]), packed[3])):
+        for name, x, w in zip("qkv", got, ref):
+            np.testing.assert_allclose(
+                x.numpy(), np.asarray(w).reshape(m, t, -1), atol=BWD_ATOL,
+                rtol=BWD_RTOL, err_msg=f"d{name}")
+
+
 def _jax_causal_attention(q, k, v, kbias, heads):
     """The JAX package's einsum path (ops/attention.py:107-126) for causal
     attention with the key bias."""
@@ -253,6 +293,21 @@ def test_cpu_wrappers_differentiate_as_the_plain_versions(rng, causal):
     for x, w, b in zip(got, want, bwd):
         torch.testing.assert_close(x, w, atol=0, rtol=0)
         torch.testing.assert_close(b, w, atol=ATOL, rtol=RTOL)
+
+
+def test_cpu_short_wrapper_differentiates_as_its_plain_backward(rng):
+    """On CPU tensors short_attention is the plain version under autograd,
+    whose gradient is short_attention_bwd_plain (the kernel's plain
+    version on the card)."""
+    heads = 2
+    q, k, v, g = (torch.from_numpy(a) for a in _qkv(rng, 11, 8, heads * 16)
+                  + [rng.standard_normal((11, 8, 32)).astype(np.float32)])
+    t = [x.clone().requires_grad_() for x in (q, k, v)]
+    kernels.reset_launches()
+    got = torch.autograd.grad(kernels.short_attention(*t, heads), t, g)
+    assert sum(kernels.LAUNCHES.values()) == 0
+    for x, w in zip(got, kernels.short_attention_bwd_plain(q, k, v, g, heads)):
+        torch.testing.assert_close(x, w, atol=ATOL, rtol=RTOL)
 
 
 def _attn_params(rng, d, lora_r):
@@ -351,4 +406,5 @@ def test_wrappers_on_cpu_use_the_plain_version_and_count_nothing(rng):
     out.sum().backward()
     assert kernels.LAUNCHES == {"attention": 0, "attention_unsplit": 0,
                                 "attention_bwd": 0, "attention_unsplit_bwd": 0,
-                                "causal_attention": 0, "short_attention": 0}
+                                "causal_attention": 0, "short_attention": 0,
+                                "short_attention_bwd": 0}

@@ -24,9 +24,9 @@ pytestmark = pytest.mark.cuda
 # output to bf16, whose ulp is 2^-7 of the value at most.
 TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 2 ** -7)}
 # Gradients, as ||got - ref|| / ||ref|| per tensor. f32: summation order
-# only. bf16: the kernel rounds P and dS to bf16 as product operands and
-# takes D = rowsum(dO O) from the bf16 output, where the plain version keeps
-# f32 throughout; each output is rounded to bf16 (2^-9 relative).
+# only. bf16: the kernels round P and dS to bf16 as product operands (K3
+# also takes D = rowsum(dO O) from the bf16 output), where the plain version
+# keeps f32 throughout; each output is rounded to bf16 (2^-9 relative).
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 SHAPES = [(2, 257, 16, 64), (3, 77, 12, 64), (2, 16, 2, 16), (2, 33, 2, 128),
           (2, 70, 3, 48), (2, 593, 16, 64)]
@@ -102,24 +102,81 @@ def test_short_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_short_wrapper_carries_gradients(cuda, dtype):
-    """K2(c) has no backward kernel (K4 block-diagonal is not ported): a
-    recorded call on the card raises before it launches, while the same
-    inputs under no_grad launch the forward kernel."""
+    """A recorded call launches the K2(c) forward and, through autograd, the
+    K4 block-diagonal backward kernel, whose gradients match
+    short_attention_bwd_plain; the same inputs under no_grad or inference
+    mode launch the forward alone and keep no graph."""
     m, t, heads, hd = 24, 8, 2, 64
     gen = torch.Generator(device=cuda).manual_seed(5)
-    q, k, v = (torch.randn(m, t, heads * hd, generator=gen, device=cuda)
-               .to(dtype).requires_grad_() for _ in range(3))
+    q, k, v, g = (torch.randn(m, t, heads * hd, generator=gen, device=cuda)
+                  .to(dtype) for _ in range(4))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     kernels.reset_launches()
-    with pytest.raises(NotImplementedError, match="K4"):
-        kernels.short_attention(q, k, v, heads)
-    assert kernels.LAUNCHES == _counts()
+    out = kernels.short_attention(*leaves, heads)
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == _counts(short_attention=1,
+                                       short_attention_bwd=1)
+    for name, x, r in zip(("dq", "dk", "dv"), got,
+                          kernels.short_attention_bwd_plain(q, k, v, g,
+                                                            heads)):
+        assert x.dtype == dtype and x.abs().sum() > 0, name
+        assert _rel(x, r) <= GRAD_TOL[dtype], (name, _rel(x, r))
+    kernels.reset_launches()
     with torch.no_grad():
-        got = kernels.short_attention(q, k, v, heads)
-        ref = kernels.short_attention_plain(q, k, v, heads)
-    assert got.grad_fn is None
-    assert kernels.LAUNCHES == _counts(short_attention=1)
+        nograd = kernels.short_attention(*leaves, heads)
+    with torch.inference_mode():
+        inference = kernels.short_attention(*leaves, heads)
+    assert nograd.grad_fn is None and inference.grad_fn is None
+    assert kernels.LAUNCHES == _counts(short_attention=2)
     atol, rtol = TOL[dtype]
-    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+    ref = kernels.short_attention_plain(q, k, v, heads)
+    torch.testing.assert_close(nograd.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    torch.testing.assert_close(out.detach(), nograd, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,t,heads,hd", SHORT_SHAPES)
+def test_short_backward_kernel_matches_plain(cuda, dtype, m, t, heads, hd):
+    """K4 block-diagonal against short_attention_bwd_plain over K2(c)'s
+    shapes (ragged M, T from 4 to 32, hd from 16 to 128), launched on a
+    non-contiguous cotangent as the temporal relayout hands it over."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(m, t, heads * hd, generator=gen, device=cuda)
+               .to(dtype) for _ in range(3))
+    g = (torch.randn(t, m, heads * hd, generator=gen, device=cuda)
+         .to(dtype).transpose(0, 1))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    kernels.reset_launches()
+    got = torch.autograd.grad(kernels.short_attention(*leaves, heads),
+                              leaves, g)
+    ref = kernels.short_attention_bwd_plain(q, k, v, g, heads)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == _counts(short_attention=1,
+                                       short_attention_bwd=1)
+    for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+        assert x.dtype == dtype and x.shape == q.shape, name
+        assert torch.isfinite(x).all(), name
+        assert _rel(x, r) <= GRAD_TOL[dtype], (name, _rel(x, r))
+
+
+def test_short_backward_rejects_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros(4, 8, 64, device=cuda)
+    with pytest.raises(ValueError):
+        kernels._launch_short_bwd(q, q, q, q.bfloat16(), 2)          # g dtype
+    with pytest.raises(ValueError):
+        kernels._launch_short_bwd(q, q, q, q[:2], 2)                 # g shape
+    with pytest.raises(ValueError):
+        kernels._launch_short_bwd(q.half(), q.half(), q.half(), q.half(), 2)
+    with pytest.raises(ValueError):
+        kernels._launch_short_bwd(q, q, q, q, 8)                     # hd 8
+    with pytest.raises(ValueError):
+        kernels._launch_short_bwd(q, q, q, q.transpose(0, 1)
+                                  .contiguous().transpose(0, 1), 2)  # strides
+    long = torch.zeros(2, 33, 64, device=cuda)
+    with pytest.raises(ValueError):
+        kernels._launch_short_bwd(long, long, long, long, 2)         # T > 32
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -335,3 +392,58 @@ def test_tiny_train_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
     for i, (x, w) in enumerate(zip(grads_gpu, grads_cpu)):
         assert _rel(x, w) <= 1e-4 or (w.norm() < 1e-8 and x.norm() < 1e-8), i
 
+
+def _tiny_train3(device, monkeypatch):
+    """One step of the video+audio+language model at tiny size, f32, LoRA B
+    non-zero on the temporal and the audio attention: (loss, the trainable
+    leaves' gradients)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = finetune.ModelConfig(
+        towers=(("video", tiny_tower("video")), ("audio", tiny_tower("audio"))),
+        fusion=FusionConfig(fusion_type="sum",
+                            modality_types=("language", "video", "audio"),
+                            output_dims=3, feature_dims=24, fusion_dim=16,
+                            dropout_prob=0.0))
+    params = finetune.init_model_params(cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(8)
+    for mod, attn in (("video", "tattn"), ("audio", "attn")):
+        for block in params["encoder"][mod]["vision"]["blocks"]:
+            for proj in block[attn].values():
+                proj["lora_b"].normal_(0.0, 0.05, generator=gen)
+    params = finetune.tree_map(lambda t: t.to(device), params)
+    state, tx = init_train_state(params, cfg)
+    step = make_train_step(cfg, tx, accum_steps=1, device=device)
+    rng = np.random.default_rng(2)
+    ids = rng.integers(1, 98, size=(4, 16)).astype(np.int32)
+    ids[:, 9] = 98
+    data = {"language": ids,
+            "video": rng.standard_normal((4, 3, 4, 32, 32)).astype(np.float32),
+            "audio": rng.standard_normal((4, 3, 32, 48)).astype(np.float32)}
+    state, m = step(state, data, np.array([0, 1, 2, 0]),
+                    np.array([0, 1, 2, 3]), 1e-3,
+                    torch.Generator(device=device).manual_seed(0))
+    return float(m["loss"]), [t.grad.cpu() for t in leaves(params)
+                              if t.grad is not None]
+
+
+def test_tiny_video_audio_train_step_on_the_card_matches_the_cpu(
+        cuda, monkeypatch):
+    """The train3 step at tiny size in f32: the card's loss and every
+    trainable leaf's gradient against the CPU's plain path, and the
+    launches of each route, the K4 block-diagonal backward among them."""
+    loss_cpu, grads_cpu = _tiny_train3("cpu", monkeypatch)
+    kernels.reset_launches()
+    loss_gpu, grads_gpu = _tiny_train3(cuda, monkeypatch)
+    torch.cuda.synchronize()
+    # 2 layers per tower; the spatial N = 5 (video) and 7 (audio) take the
+    # unsplit route
+    assert kernels.LAUNCHES == _counts(attention_unsplit=4,
+                                       attention_unsplit_bwd=4,
+                                       short_attention=2,
+                                       short_attention_bwd=2,
+                                       causal_attention=2)
+    assert loss_gpu == pytest.approx(loss_cpu, rel=1e-5)
+    assert len(grads_gpu) == len(grads_cpu)
+    for i, (x, w) in enumerate(zip(grads_gpu, grads_cpu)):
+        assert _rel(x, w) <= 1e-4 or (w.norm() < 1e-8 and x.norm() < 1e-8), i
