@@ -15,9 +15,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 temporal [16*257, 8]; train3, recorded: K1 and K3 at
                 [64, 257], K2(b) and K4 unmasked at [8, 593], K2(c) and K4
                 block-diagonal at [8*257, 8], K2(a) at B=8; each backward
-                through torch.autograd.grad), against its plain PyTorch
-                version in f32 and bf16, each launch counted under its own
-                name;
+                through torch.autograd.grad; ln2fc1: K5 at the eval image
+                [64*257, 1024] -> 4096 with bias and text [64*77, 768] ->
+                3072 without, and at the train microbatch's image and ragged
+                text [16*77, 768] rows with its backward; probes: K6 at
+                [16448, 1024, 4096]), against its plain PyTorch version in
+                f32 and bf16, each launch counted under its own name;
                 times the kernel, the plain version and one PyTorch library
                 call doing the same work (CUDA events, median of 7 runs of
                 20 launches, inputs rotated through enough copies to miss
@@ -64,10 +67,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 samples/s and peak memory. Then holds the card's f32
                 gradients for 2 complete rows at full depth (LoRA B
                 non-zero, TF32 off) against the CPU's plain path.
-  8. summary  - a `{"kernels": [...]}` line, the card's name and power limit,
+  8. ln2fc1   - the flagship eval step (B=64) and train step (B=64 as 4 x 16)
+                with the pre-LN block's ln2 -> fc1 through K5 (FUSE_LN2_FC1
+                on), timed in turns with the switch off (off, on, on, off);
+                checks that every fused eval step launched K5 36 times (24
+                image + 12 text blocks) beside K1 24 and K2 12, every fused
+                train step K5 144 beside 96/96/48 (and the unfused arms 0),
+                that the outputs are finite, no frozen leaf moved and the
+                trainable ones did (the text tower's fc1 and ln2 among them).
+                Then holds the card's fused f32 logits for 8 rows against
+                the CPU's plain path, and one step's card f32 gradients for
+                8 rows fused against unfused (TF32 off).
+  9. probes   - both probes' A/B once (missm_tpu_torch.probes): the 24-layer
+                image stack at B=64, fused and unfused, and 24 chained
+                layers of K6 against the cuBLAS chain; prints ms per stack
+                and checks the launches of K5 and K6.
+ 10. summary  - a `{"kernels": [...]}` line, the card's name and power limit,
                 and as the last line {"ok": true, "device": {...}}.
---profile adds one torch.profiler-traced step of each of eval, train, eval3
-and train3 and prints device time by kernel.
+--profile adds one torch.profiler-traced step of each of eval, train, eval3,
+train3, ln2fc1 eval and ln2fc1 train and prints device time by kernel.
 """
 from __future__ import annotations
 
@@ -318,9 +336,195 @@ def kernel_phase(dev, rng):
     by_name = {row["name"]: row for row in rows}
     for spec in backward_specs():
         rows.append(backward_row(dev, gen, spec, by_name[spec["forward"]]))
+    rows += [ln_linear_row(dev, gen), mlp_bwd_row(dev, gen)]
     for row in rows:
         summarise_checks(row)
     return rows
+
+
+def bound(io_bytes, flops):
+    """(the least time in ms, what bounds it): the bytes at the card's memory
+    rate against the operations at its bf16 tensor-core rate."""
+    t_bytes = io_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ln_inputs(dev, gen, m, d, f, dtype, bias):
+    """Seeded x [m, d] and the ln2 / fc1 params of one block at the model's
+    init scale (fc1 std (2d)^-0.5), all of `dtype`."""
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale
+                + shift).to(dtype)
+    ln = {"scale": randn(d, scale=0.1, shift=1.0), "bias": randn(d, scale=0.1)}
+    lin = {"w": randn(d, f, scale=(2 * d) ** -0.5)}
+    if bias:
+        lin["b"] = randn(f, scale=0.1)
+    return randn(m, d, scale=2.0, shift=0.5), ln, lin
+
+
+def ln_linear_row(dev, gen):
+    """K5 through its wrapper at the ln2fc1 paths' shapes: eval image
+    [64*257, 1024] -> 4096 with the bias, eval text [64*77, 768] -> 3072
+    without it (the kernel's other variant), and the train microbatch's
+    image [16*257, 1024] and ragged text [16*77, 768] rows, recorded, with
+    the gradient of every input through torch.autograd.grad (the plain
+    backward) against autograd of the plain version in f32. Each forward
+    must launch K5 once. Timed at the eval image shape, against F.layer_norm
+    + F.linear."""
+    from missm_tpu_torch.kernels import attention as K
+    from missm_tpu_torch.kernels import ln_linear as lnl
+
+    tower = flagship_config("bfloat16").towers[0][1]
+    image = (tower.vision.seq_len, tower.vision.hidden_size,
+             tower.vision.intermediate_size)
+    text = (tower.text.max_position_embeddings, tower.text.hidden_size,
+            tower.text.intermediate_size)
+    b = B // ACCUM
+    cases = {"ln2fc1 eval image": (B * image[0], *image[1:], True, False),
+             "ln2fc1 eval text": (B * text[0], *text[1:], False, False),
+             "ln2fc1 train image": (b * image[0], *image[1:], True, True),
+             "ln2fc1 train text": (b * text[0], *text[1:], True, True)}
+    timed = cases["ln2fc1 eval image"][:3]
+    row = {"name": "ln_linear", "route": "cuda",
+           "source": "missm_tpu_torch/csrc/ln_linear.cu",
+           "replaces": "missm_tpu/kernels/ln_linear.py:64 "
+                       "(_ln_linear_fwd_pallas, pallas_call at 92)",
+           "shape": "M={} D={} F={} bias".format(*timed), "checks": {}}
+    for path, (m, d, f, bias, recorded) in cases.items():
+        check = row["checks"][path] = {"shape": f"M={m} D={d} F={f} "
+                                                f"bias={bias}"}
+        for dtype, tag in DTYPES:
+            x, ln, lin = ln_inputs(dev, gen, m, d, f, dtype, bias)
+            leaves = [x, ln["scale"], ln["bias"], *lin.values()]
+            for t in leaves:
+                t.requires_grad_(recorded)
+            before = dict(K.LAUNCHES)
+            with no_tf32():
+                got = lnl.ln_linear(x, ln, lin)
+                via = {k: K.LAUNCHES[k] - before[k] for k in before}
+                with torch.no_grad():
+                    ref = lnl.ln_linear_plain(x, ln, lin)
+                torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs()
+            atol, rtol = TOL[dtype]
+            if ((err > atol + rtol * ref.float().abs()).any()
+                    or not torch.isfinite(got).all()
+                    or via != dict(dict.fromkeys(via, 0), ln_linear=1)):
+                raise AssertionError(f"ln_linear {path} {tag}: kernel disagrees "
+                                     f"with the plain version, max abs err "
+                                     f"{err.max().item():.3e}, launches {via}")
+            check[f"max_abs_err_{tag}"] = err.max().item()
+            if recorded:
+                g = torch.randn(m, f, generator=gen, device=dev)
+                with no_tf32():
+                    grads = torch.autograd.grad(got, leaves, g.to(dtype))
+                    ref_leaves = [t.detach().float().requires_grad_()
+                                  for t in leaves]
+                    ref_out = lnl.ln_linear_plain(
+                        ref_leaves[0], {"scale": ref_leaves[1],
+                                        "bias": ref_leaves[2]},
+                        dict(zip(lin, ref_leaves[3:])))
+                    ref_grads = torch.autograd.grad(ref_out, ref_leaves, g)
+                rel = max(((a.float() - r).norm() / r.norm()).item()
+                          for a, r in zip(grads, ref_grads))
+                if not (rel <= GRAD_TOL[dtype]
+                        and all(torch.isfinite(a).all() for a in grads)):
+                    raise AssertionError(f"ln_linear backward {path} {tag}: "
+                                         f"relative error {rel:.3e} (limit "
+                                         f"{GRAD_TOL[dtype]})")
+                check[f"grad_rel_err_{tag}"] = rel
+            del x, ln, lin, leaves, got, ref
+        print(f"check ln_linear {path} [{check['shape']}]: max abs err f32 "
+              f"{check['max_abs_err_f32']:.2e} bf16 "
+              f"{check['max_abs_err_bf16']:.2e}"
+              + (f"; gradients rel err f32 {check['grad_rel_err_f32']:.2e} "
+                 f"bf16 {check['grad_rel_err_bf16']:.2e}"
+                 if recorded else ""), flush=True)
+
+    # timing, bf16, at the eval image shape (176.8 MB of inputs and output:
+    # larger than L2 without copies)
+    m, d, f = timed
+    x, ln, lin = ln_inputs(dev, gen, m, d, f, torch.bfloat16, True)
+    row["ms"] = median_ms(lambda: lnl.ln_linear(x, ln, lin))
+    row["plain_ms"] = median_ms(lambda: lnl.ln_linear_plain(x, ln, lin))
+    row["library_ms"] = median_ms(lambda: torch.nn.functional.linear(
+        torch.nn.functional.layer_norm(x, (d,), ln["scale"], ln["bias"]),
+        lin["w"].t(), lin["b"]))
+    row["bound_ms"], row["bound_by"] = bound((m * d + d * f + m * f + 2 * d + f)
+                                             * 2, 2 * m * d * f)
+    print(f"kernel ln_linear [{row['shape']}]: bf16 kernel {row['ms']:.4f} ms, "
+          f"plain {row['plain_ms']:.4f} ms, F.layer_norm + F.linear "
+          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']})", flush=True)
+    return row
+
+
+def mlp_inputs(dev, gen, m, d, ff, dtype):
+    """Seeded dy [m, d], wide [m, ff], w1 [d, ff], w2 [ff, d] at the probe's
+    scales."""
+    return [(torch.randn(*shape, generator=gen, device=dev) * s).to(dtype)
+            for shape, s in (((m, d), 1.0), ((m, ff), 0.5), ((d, ff), 0.02),
+                             ((ff, d), 0.02))]
+
+
+def mlp_bwd_row(dev, gen):
+    """K6 through its wrapper at the probe's shape [16448, 1024, 4096]
+    against its plain version in f32 and bf16 (one launch each), timed in
+    bf16 against the library chain: cuBLAS writing dwide in f32, the
+    derivative, cuBLAS again."""
+    from missm_tpu_torch.kernels import attention as K
+    from missm_tpu_torch.kernels import mlp_bwd
+    from missm_tpu_torch.ops.basic import matmul_f32
+    from missm_tpu_torch.probes import mlp_bwd_probe
+
+    m, d, ff = mlp_bwd_probe.M, mlp_bwd_probe.D, mlp_bwd_probe.FF
+    row = {"name": "mlp_bwd_dx", "route": "cuda",
+           "source": "missm_tpu_torch/csrc/mlp_bwd.cu",
+           "replaces": "missm_tpu/kernels/mlp_bwd.py:73 (mlp_bwd_dx, "
+                       "pallas_call at 87)",
+           "shape": f"M={m} D={d} FF={ff}", "checks": {}}
+    check = row["checks"]["probes"] = {"shape": row["shape"]}
+    for dtype, tag in DTYPES:
+        args = mlp_inputs(dev, gen, m, d, ff, dtype)
+        before = dict(K.LAUNCHES)
+        with no_tf32():
+            got = mlp_bwd.mlp_bwd_dx(*args)
+            via = {k: K.LAUNCHES[k] - before[k] for k in before}
+            ref = mlp_bwd.mlp_bwd_dx_plain(*args)
+            torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        atol, rtol = TOL[dtype]
+        if ((err > atol + rtol * ref.float().abs()).any()
+                or not torch.isfinite(got).all()
+                or via != dict(dict.fromkeys(via, 0), mlp_bwd_dx=1)):
+            raise AssertionError(f"mlp_bwd_dx {tag}: kernel disagrees with "
+                                 f"the plain version, max abs err "
+                                 f"{err.max().item():.3e}, launches {via}")
+        check[f"max_abs_err_{tag}"] = err.max().item()
+        del args, got, ref
+    print(f"check mlp_bwd_dx [{row['shape']}]: max abs err f32 "
+          f"{check['max_abs_err_f32']:.2e} bf16 "
+          f"{check['max_abs_err_bf16']:.2e}", flush=True)
+
+    dy, wide, w1, w2 = mlp_inputs(dev, gen, m, d, ff, torch.bfloat16)
+
+    def library():
+        dwide = matmul_f32(dy, w2.t())  # torch.mm(..., out_dtype=f32)
+        dwide = dwide * mlp_bwd.quick_gelu_grad(wide.float())
+        return torch.mm(dwide.to(dy.dtype), w1.t())
+
+    row["ms"] = median_ms(lambda: mlp_bwd.mlp_bwd_dx(dy, wide, w1, w2))
+    row["plain_ms"] = median_ms(lambda: mlp_bwd.mlp_bwd_dx_plain(dy, wide,
+                                                                 w1, w2))
+    row["library_ms"] = median_ms(library)
+    row["bound_ms"], row["bound_by"] = bound(
+        (2 * m * d + m * ff + 2 * d * ff) * 2, 4 * m * d * ff)
+    print(f"kernel mlp_bwd_dx [{row['shape']}]: bf16 kernel {row['ms']:.4f} ms, "
+          f"plain {row['plain_ms']:.4f} ms, cuBLAS chain "
+          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']})", flush=True)
+    return row
 
 
 def backward_specs():
@@ -496,56 +700,86 @@ def layers(cfg):
     return tower.vision.num_layers, tower.text.num_layers
 
 
-def slice_phase(dev, rng, card, profile):
-    from missm_tpu_torch.kernels import attention as K
+def flagship_eval_inputs(dev, rng):
+    """bench.py's eval batch for the flagship model (ids with the
+    tokenizer's attention mask, bf16 images, codes rotating over {0, 1, 4})
+    and its seeded f32 params, with the encoder cast to bf16 once, up front
+    (the fusion head stays f32). Returns (cfg, params, params_bf16, (ids,
+    mask, image), (data, labels, masks))."""
     from missm_tpu_torch.models import finetune
-    from missm_tpu_torch.train.step import make_eval_step
 
     cfg = flagship_config("bfloat16")
-    t0 = time.perf_counter()
     params = finetune.init_model_params(cfg, seed=0, device=dev)
-    # encoder in bf16 once, up front; the fusion head stays f32
     params_bf16 = {"encoder": finetune.cast_tree(params["encoder"],
                                                  torch.bfloat16),
                    "fusion": params["fusion"]}
     ids, mask = text_batch(rng, B, vary_length=False)
-    image = rng.standard_normal((B, 3, 224, 224)).astype(np.float32)
+    image = rng.standard_normal(
+        (B, 3, *cfg.towers[0][1].vision.image_size)).astype(np.float32)
     data = {"language": {"input_ids": torch.as_tensor(ids, device=dev),
                          "attention_mask": torch.as_tensor(mask, device=dev)},
             "image": torch.as_tensor(image, device=dev).to(torch.bfloat16)}
     labels = torch.as_tensor(rng.integers(0, 10, B), device=dev)
     masks = [torch.as_tensor(rng.choice([0, 1, 4], B), device=dev)
              for _ in range(4)]
-    eval_step = make_eval_step(cfg, device=dev)
-    for i in range(2):  # warm-up: cuBLAS/cuDNN plans
-        eval_step(params_bf16, data, labels, masks[i])
-    torch.cuda.synchronize()
-    print(f"slice set-up {time.perf_counter() - t0:.1f} s", flush=True)
+    return cfg, params, params_bf16, (ids, mask, image), (data, labels, masks)
 
+
+def timed_eval(name, eval_step, params, data, labels, masks, expect, card):
+    """Two warm-up steps of eval_step, then STEPS timed ones with every
+    launch count from 0, the missing codes rotating over `masks`. Checks
+    that each timed step launched exactly `expect` ({count: launches per
+    step}, every other count 0), that the outputs are finite and of the
+    batch's shape and that the probs sum to 1. Prints the rate; returns
+    (the launch counts of the timed steps, samples/s)."""
+    from missm_tpu_torch.kernels import attention as K
+
+    b = len(labels)
+    for i in range(2):  # warm-up: cuBLAS/cuDNN plans
+        eval_step(params, data, labels, masks[i])
+    torch.cuda.synchronize()
     K.reset_launches()
     t0 = time.perf_counter()
     for i in range(STEPS):
-        out = eval_step(params_bf16, data, labels, masks[i % 4])
+        out = eval_step(params, data, labels, masks[i % len(masks)])
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
-    expect = dict(dict.fromkeys(launches, 0), attention=24 * STEPS,
-                  causal_attention=12 * STEPS)
-    if launches != expect:
-        raise AssertionError(f"kernel launches {launches}, expected {expect}")
+    want = dict(dict.fromkeys(launches, 0),
+                **{k: n * STEPS for k, n in expect.items()})
+    if launches != want:
+        raise AssertionError(f"{name} kernel launches {launches}, expected "
+                             f"{want}")
     probs = out["probs"]
     if not (torch.isfinite(probs).all() and torch.isfinite(out["loss"])):
-        raise AssertionError("non-finite eval outputs")
-    if not torch.allclose(probs.sum(-1), torch.ones(B, device=dev),
+        raise AssertionError(f"non-finite {name} outputs")
+    if not torch.allclose(probs.sum(-1), torch.ones(b, device=probs.device),
                           atol=1e-5):
-        raise AssertionError("probs do not sum to 1")
-    if probs.shape != (B, 10) or out["preds"].shape != (B,):
-        raise AssertionError(f"output shapes {tuple(probs.shape)}, "
+        raise AssertionError(f"{name} probs do not sum to 1")
+    if probs.shape != (b, 10) or out["preds"].shape != (b,):
+        raise AssertionError(f"{name} output shapes {tuple(probs.shape)}, "
                              f"{tuple(out['preds'].shape)}")
-    rate = B * STEPS / dt
-    print(f"slice eval: {STEPS} steps of B={B} in {dt:.4f} s = {rate:.2f} "
+    rate = b * STEPS / dt
+    print(f"{name}: {STEPS} steps of B={b} in {dt:.4f} s = {rate:.2f} "
           f"samples/s, {dt / STEPS * 1e3:.3f} ms/step, loss "
           f"{out['loss'].item():.4f} [{card}]", flush=True)
+    return launches, rate
+
+
+def slice_phase(dev, rng, card, profile):
+    from missm_tpu_torch.models import finetune
+    from missm_tpu_torch.train.step import make_eval_step
+
+    t0 = time.perf_counter()
+    cfg, params, params_bf16, (ids, mask, image), (data, labels, masks) = \
+        flagship_eval_inputs(dev, rng)
+    eval_step = make_eval_step(cfg, device=dev)
+    print(f"slice set-up {time.perf_counter() - t0:.1f} s", flush=True)
+    n_vision, n_text = layers(cfg)
+    launches, _ = timed_eval("slice eval", eval_step, params_bf16, data,
+                             labels, masks, dict(attention=n_vision,
+                                                 causal_attention=n_text),
+                             card)
 
     if profile:
         profile_step("eval", lambda: eval_step(params_bf16, data, labels,
@@ -593,7 +827,6 @@ def eval3_config(compute_dtype, dropout_prob=0.1):
 
 
 def eval3_phase(dev, rng, card, profile):
-    from missm_tpu_torch.kernels import attention as K
     from missm_tpu_torch.models import finetune
     from missm_tpu_torch.train.step import make_eval_step
 
@@ -605,8 +838,7 @@ def eval3_phase(dev, rng, card, profile):
                    "fusion": params["fusion"]}
     # bench.py's eval3 batch: ids without a mask, bf16 media
     ids, _ = text_batch(rng, B3, vary_length=False)
-    video = rng.standard_normal((B3, 3, FRAMES, 224, 224)).astype(np.float32)
-    audio = rng.standard_normal((B3, 3, 112, 1036)).astype(np.float32)
+    video, audio = media(rng, cfg, B3).values()
     data = {"language": torch.as_tensor(ids, device=dev),
             "video": torch.as_tensor(video, device=dev).to(torch.bfloat16),
             "audio": torch.as_tensor(audio, device=dev).to(torch.bfloat16)}
@@ -614,48 +846,21 @@ def eval3_phase(dev, rng, card, profile):
     masks = [torch.as_tensor(rng.choice([0, 1, 2, 3], B3), device=dev)
              for _ in range(4)]
     eval_step = make_eval_step(cfg, device=dev)
-    for i in range(2):  # warm-up: cuBLAS/cuDNN plans
-        eval_step(params_bf16, data, labels, masks[i])
-    torch.cuda.synchronize()
     print(f"eval3 set-up {time.perf_counter() - t0:.1f} s", flush=True)
-
-    K.reset_launches()
-    t0 = time.perf_counter()
-    for i in range(STEPS):
-        out = eval_step(params_bf16, data, labels, masks[i % 4])
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
     video_cfg, audio_cfg = (t.vision for _, t in cfg.towers)
-    n_text = cfg.towers[-1][1].text.num_layers
     # every other count 0: no backward, so neither attention_bwd nor
     # attention_unsplit_bwd (K4's unmasked math, which nothing here checks)
-    expect = dict(dict.fromkeys(launches, 0),
-                  attention=video_cfg.num_layers * STEPS,
-                  short_attention=video_cfg.num_layers * STEPS,
-                  attention_unsplit=audio_cfg.num_layers * STEPS,
-                  causal_attention=n_text * STEPS)
-    if launches != expect:
-        raise AssertionError(f"eval3 kernel launches {launches}, expected "
-                             f"{expect}")
-    probs = out["probs"]
-    if not (torch.isfinite(probs).all() and torch.isfinite(out["loss"])):
-        raise AssertionError("non-finite eval3 outputs")
-    if not torch.allclose(probs.sum(-1), torch.ones(B3, device=dev),
-                          atol=1e-5):
-        raise AssertionError("eval3 probs do not sum to 1")
-    if probs.shape != (B3, 10) or out["preds"].shape != (B3,):
-        raise AssertionError(f"eval3 output shapes {tuple(probs.shape)}, "
-                             f"{tuple(out['preds'].shape)}")
-    rate = B3 * STEPS / dt
-    print(f"eval3: {STEPS} steps of B={B3} in {dt:.4f} s = {rate:.2f} "
-          f"samples/s, {dt / STEPS * 1e3:.3f} ms/step, loss "
-          f"{out['loss'].item():.4f} [{card}]", flush=True)
+    launches, _ = timed_eval(
+        "eval3", eval_step, params_bf16, data, labels, masks,
+        dict(attention=video_cfg.num_layers,
+             short_attention=video_cfg.num_layers,
+             attention_unsplit=audio_cfg.num_layers,
+             causal_attention=cfg.towers[-1][1].text.num_layers), card)
 
     if profile:
         profile_step("eval3", lambda: eval_step(params_bf16, data, labels,
                                                 masks[0]))
-    del params_bf16, data, out
+    del params_bf16, data
 
     # f32 on the card (no TF32) vs f32 on the CPU (plain attention), 2 rows:
     # one complete, one without its video
@@ -707,7 +912,7 @@ def timed_train(name, step, state, batch, params, cfg, moving, expect,
     per step}, every other count 0), that every loss is finite, that no
     frozen leaf of `params` moved and that every leaf of `moving` ({label:
     tensor}) did. Prints the rate and peak memory; returns (state, the
-    launch counts of the timed steps)."""
+    launch counts of the timed steps, samples/s)."""
     from missm_tpu_torch.kernels import attention as K
     from missm_tpu_torch.train.trainability import (FROZEN, leaves,
                                                     param_labels)
@@ -746,14 +951,15 @@ def timed_train(name, step, state, batch, params, cfg, moving, expect,
     still = [k for k, t in moving.items() if torch.equal(t, before[k])]
     if still:
         raise AssertionError(f"trainable {name} leaves did not move: {still}")
+    rate = len(batch[1]) * STEPS / dt
     print(f"{name}: {STEPS} steps of B={len(batch[1])} in {dt:.4f} s = "
-          f"{len(batch[1]) * STEPS / dt:.2f} samples/s, "
+          f"{rate:.2f} samples/s, "
           f"{dt / STEPS * 1e3:.3f} ms/step, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, losses "
           f"{[round(x, 4) for x in losses]}; {len(frozen)} frozen leaves "
           f"unchanged, {len(moving)} trainable leaves moved [{card}]",
           flush=True)
-    return state, launches
+    return state, launches, rate
 
 
 def grad_check(dev, name, cfg, params, batch, watched, expect):
@@ -840,7 +1046,7 @@ def train3_phase(dev, rng, card, profile):
     video_cfg, audio_cfg = (t.vision for _, t in cfg.towers)
     # no remat: each forward kernel once per layer and each backward once;
     # the text tower's causal attention has a plain backward
-    state, launches = timed_train(
+    state, launches, _ = timed_train(
         "train3", step, state, batch, params, cfg, moving,
         dict(attention=video_cfg.num_layers,
              attention_bwd=video_cfg.num_layers,
@@ -903,13 +1109,16 @@ def train3_grads(dev, rng):
                     attention_unsplit_bwd=audio))
 
 
-def train_phase(dev, rng, card, profile):
+def flagship_train_inputs(dev, rng):
+    """bench.py's train batch for the flagship model (ids without a mask,
+    f32 images, codes from {0, 1, 4}, lr, the head's dropout generator), its
+    seeded f32 params and the train step over 4 x 16 microbatches with its
+    Adam state. Returns (cfg, params, state, step, batch)."""
     from missm_tpu_torch.models import finetune
     from missm_tpu_torch.train.step import init_train_state, make_train_step
 
     cfg = flagship_config("bfloat16")
     params = finetune.init_model_params(cfg, seed=0, device=dev)
-    # bench.py's train batch: token ids without a mask, f32 images
     ids, _ = text_batch(rng, B, vary_length=False)
     data = {"language": torch.as_tensor(ids, device=dev),
             "image": torch.as_tensor(rng.standard_normal(
@@ -919,7 +1128,12 @@ def train_phase(dev, rng, card, profile):
              torch.as_tensor(rng.choice([0, 1, 4], B), device=dev), LR,
              torch.Generator(device=dev).manual_seed(0))
     state, tx = init_train_state(params, cfg)
-    step = make_train_step(cfg, tx, accum_steps=ACCUM, device=dev)
+    return cfg, params, state, make_train_step(cfg, tx, accum_steps=ACCUM,
+                                               device=dev), batch
+
+
+def train_phase(dev, rng, card, profile):
+    cfg, params, state, step, batch = flagship_train_inputs(dev, rng)
 
     blocks = params["encoder"]["image"]["vision"]["blocks"]
     moving = {"vision block 0 q lora_b": blocks[0]["attn"]["q"]["lora_b"],
@@ -931,14 +1145,14 @@ def train_phase(dev, rng, card, profile):
               "fusion proj image w": params["fusion"]["proj"]["image"]["w"]}
     n_vision, n_text = layers(cfg)
     # N=257 takes the CLS-split route, so nothing reaches the unsplit counts
-    state, launches = timed_train(
+    state, launches, _ = timed_train(
         f"train ({ACCUM} x {B // ACCUM})", step, state, batch, params, cfg,
         moving, dict(attention=n_vision * ACCUM, attention_bwd=n_vision * ACCUM,
                      causal_attention=n_text * ACCUM), card)
 
     if profile:
         profile_step("train", lambda: step(state, *batch))
-    del state, tx, step, params, data, batch, moving, blocks
+    del state, step, params, batch, moving, blocks
     flagship_grads(dev, rng)
     return launches
 
@@ -980,6 +1194,228 @@ def flagship_grads(dev, rng):
                dict(attention_bwd=layers(cfg)[0]))
 
 
+@contextlib.contextmanager
+def ln2fc1_switch(on=True):
+    """FUSE_LN2_FC1 set to `on` for the block, off again afterwards."""
+    from missm_tpu_torch.kernels import ln_linear as lnl
+
+    lnl.FUSE_LN2_FC1 = on
+    try:
+        yield
+    finally:
+        lnl.FUSE_LN2_FC1 = False
+
+
+def in_turns(name, run_arm):
+    """run_arm(arm) -> (launch counts, samples/s) for the arms unfused,
+    fused, fused, unfused in turns, with FUSE_LN2_FC1 set for each; prints
+    both arms' rates side by side. Returns the fused arms' launch counts."""
+    rates = {"unfused": [], "fused": []}
+    for arm in ("unfused", "fused", "fused", "unfused"):
+        with ln2fc1_switch(arm == "fused"):
+            launches, rate = run_arm(arm)
+        rates[arm].append(rate)
+        if arm == "fused":
+            fused = launches
+    print(f"{name}: fused {rates['fused'][0]:.2f} / {rates['fused'][1]:.2f} "
+          f"samples/s against unfused {rates['unfused'][0]:.2f} / "
+          f"{rates['unfused'][1]:.2f} in the same run; K5 "
+          f"{fused['ln_linear'] // STEPS} launches per step", flush=True)
+    return fused
+
+
+def ln2fc1_phase(dev, rng, card, profile):
+    """The flagship eval and train steps with ln2 -> fc1 through K5
+    (FUSE_LN2_FC1 on), timed in turns with the switch off; returns the fused
+    arms' launch counts {"ln2fc1_eval": .., "ln2fc1_train": ..}."""
+    return {"ln2fc1_eval": ln2fc1_eval(dev, rng, card, profile),
+            "ln2fc1_train": ln2fc1_train(dev, rng, card, profile)}
+
+
+def ln2fc1_eval(dev, rng, card, profile):
+    from missm_tpu_torch.kernels import attention as K
+    from missm_tpu_torch.models import finetune
+    from missm_tpu_torch.train.step import make_eval_step
+
+    cfg, params, params_bf16, (ids, mask, image), (data, labels, masks) = \
+        flagship_eval_inputs(dev, rng)
+    eval_step = make_eval_step(cfg, device=dev)
+    n_vision, n_text = layers(cfg)
+    def run_arm(arm):
+        expect = dict(attention=n_vision, causal_attention=n_text)
+        if arm == "fused":
+            expect["ln_linear"] = n_vision + n_text
+        return timed_eval(f"ln2fc1 eval {arm}", eval_step, params_bf16, data,
+                          labels, masks, expect, card)
+
+    fused_launches = in_turns("ln2fc1 eval", run_arm)
+    if profile:
+        with ln2fc1_switch():
+            profile_step("ln2fc1 eval", lambda: eval_step(params_bf16, data,
+                                                          labels, masks[0]))
+    del params_bf16, data
+
+    # f32 on the card (no TF32) vs f32 on the CPU (the plain versions), both
+    # fused: 8 rows, so that both towers' rows (8 x 257, 8 x 77) pass the gate
+    cfg32 = flagship_config("float32")
+    rows = {"language": {"input_ids": ids[:8], "attention_mask": mask[:8]},
+            "image": image[:8]}
+    miss = np.array([0, 1, 4, 0, 0, 1, 4, 0])
+    before = dict(K.LAUNCHES)
+    with no_tf32(), ln2fc1_switch():
+        got, _ = finetune.model_forward(params, cfg32, rows, miss, device=dev)
+        torch.cuda.synchronize()
+    via = K.LAUNCHES["ln_linear"] - before["ln_linear"]
+    params_cpu = finetune.tree_map(lambda t: t.cpu(), params)
+    del params
+    t0 = time.perf_counter()
+    with ln2fc1_switch():
+        ref, _ = finetune.model_forward(params_cpu, cfg32, rows, miss,
+                                        device="cpu")
+    err = (got.cpu() - ref).abs().max().item()
+    print(f"ln2fc1 f32 logits, card vs CPU plain (8 rows, CPU "
+          f"{time.perf_counter() - t0:.1f} s, K5 launches {via}): max abs err "
+          f"{err:.3e} (limit {LOGITS_F32_ATOL}); |logits| max "
+          f"{ref.abs().max().item():.3f}", flush=True)
+    if via != n_vision + n_text or not err <= LOGITS_F32_ATOL:
+        raise AssertionError("card f32 ln2fc1 logits disagree with the CPU's")
+    return fused_launches
+
+
+def ln2fc1_train(dev, rng, card, profile):
+    cfg, params, state, step, batch = flagship_train_inputs(dev, rng)
+    text = params["encoder"]["language"]["text"]["blocks"]
+    vision = params["encoder"]["image"]["vision"]["blocks"]
+    # K5's backward reaches the text tower's fc1 weight and bias and ln2
+    moving = {"vision block 0 q lora_b": vision[0]["attn"]["q"]["lora_b"],
+              "text block 0 fc1 w": text[0]["mlp"]["fc1"]["w"],
+              "text block 0 fc1 b": text[0]["mlp"]["fc1"]["b"],
+              "text last block ln2 scale": text[-1]["ln2"]["scale"],
+              "fusion proj image w": params["fusion"]["proj"]["image"]["w"]}
+    n_vision, n_text = layers(cfg)
+    base = dict(attention=n_vision * ACCUM, attention_bwd=n_vision * ACCUM,
+                causal_attention=n_text * ACCUM)
+    def run_arm(arm):
+        nonlocal state
+        expect = dict(base)
+        if arm == "fused":
+            expect["ln_linear"] = (n_vision + n_text) * ACCUM
+        state, launches, rate = timed_train(
+            f"ln2fc1 train {arm} ({ACCUM} x {B // ACCUM})", step, state,
+            batch, params, cfg, moving, expect, card)
+        return launches, rate
+
+    fused_launches = in_turns("ln2fc1 train", run_arm)
+    if profile:
+        with ln2fc1_switch():
+            profile_step("ln2fc1 train", lambda: step(state, *batch))
+    del state, step, params, batch, moving, text, vision
+    torch.cuda.empty_cache()
+    ln2fc1_grads(dev, rng)
+    return fused_launches
+
+
+def ln2fc1_grads(dev, rng):
+    """One f32 step's gradients on the card (TF32 off), fused against
+    unfused: 8 rows, so that both towers' rows pass the gate, at full depth,
+    LoRA B non-zero. The fused run launches K5 once per block and its plain
+    backward gives the text tower's fc1 and ln2 gradients."""
+    from missm_tpu_torch.kernels import attention as K
+    from missm_tpu_torch.models import finetune
+    from missm_tpu_torch.train.step import compute_loss, partition_trainable
+
+    cfg = flagship_config("float32", dropout_prob=0.0)
+    params = finetune.init_model_params(cfg, seed=1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for block in params["encoder"]["image"]["vision"]["blocks"]:
+        for proj in block["attn"].values():
+            proj["lora_b"].normal_(0.0, 0.01, generator=gen)
+    ids, mask = text_batch(rng, 8, vary_length=True)
+    batch = ({"language": {"input_ids": ids, "attention_mask": mask},
+              "image": rng.standard_normal(
+                  (8, 3, *cfg.towers[0][1].vision.image_size))
+              .astype(np.float32)},
+             np.array([1, 5, 7, 2, 0, 9, 3, 4]),
+             np.array([0, 1, 4, 0, 0, 0, 1, 4]))
+
+    def watched(p):
+        v = p["encoder"]["image"]["vision"]["blocks"]
+        t = p["encoder"]["language"]["text"]["blocks"]
+        return {"vision block 0 q lora_a": v[0]["attn"]["q"]["lora_a"],
+                "vision last block out lora_b": v[-1]["attn"]["out"]["lora_b"],
+                "patch_embedding": p["encoder"]["image"]["vision"]
+                ["patch_embedding"]["w"],
+                "text block 0 fc1 w": t[0]["mlp"]["fc1"]["w"],
+                "text block 0 fc1 b": t[0]["mlp"]["fc1"]["b"],
+                "text block 0 ln2 scale": t[0]["ln2"]["scale"],
+                "text last block ln2 bias": t[-1]["ln2"]["bias"],
+                "text block 0 q w": t[0]["attn"]["q"]["w"],
+                "fusion proj language w": p["fusion"]["proj"]["language"]
+                ["w"]}
+
+    def grads(on):
+        p = finetune.tree_map(lambda t: t.detach().clone(), params)
+        partition_trainable(p, cfg)
+        before = dict(K.LAUNCHES)
+        with no_tf32(), ln2fc1_switch(on):
+            loss, _ = compute_loss(p, None, cfg, *batch, None, device=dev)
+            loss.backward()
+            torch.cuda.synchronize()
+        via = {k: v - before[k] for k, v in K.LAUNCHES.items()}
+        return loss.item(), {k: t.grad for k, t in watched(p).items()}, via
+
+    loss_on, g_on, via_on = grads(True)
+    loss_off, g_off, via_off = grads(False)
+    rel = {k: ((g_on[k] - g_off[k]).norm() / g_off[k].norm()).item()
+           for k in g_off}
+    n_vision, n_text = layers(cfg)
+    print(f"ln2fc1 f32 grads on the card, fused vs unfused (8 rows, codes "
+          f"{batch[2].tolist()}, K5 launches {via_on['ln_linear']} / "
+          f"{via_off['ln_linear']}): loss {loss_on:.6f} vs {loss_off:.6f}; "
+          f"relative error by leaf "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          + f" (limit {GRADS_F32_RTOL})", flush=True)
+    if (via_on["ln_linear"] != n_vision + n_text or via_off["ln_linear"]
+            or via_on["attention_bwd"] != n_vision
+            or not all(v <= GRADS_F32_RTOL for v in rel.values())):
+        raise AssertionError("card f32 ln2fc1 gradients disagree with the "
+                             "unfused ones")
+
+
+def probes_phase(dev):
+    """Both probes' A/B once, every count from 0: the ln_linear probe (the
+    24-layer image stack at B=64, forward and forward + backward, switch off
+    and on) and the mlp_bwd probe (24 chained layers at [16448, 1024, 4096],
+    the library chain and K6). Checks the launches of K5 (each fused stack
+    once per block) and K6 (once per layer of each kernel stack); returns
+    the launch counts."""
+    from missm_tpu_torch.kernels import attention as K
+    from missm_tpu_torch.probes import ln_linear_probe, mlp_bwd_probe
+
+    K.reset_launches()
+    ln = ln_linear_probe.run(dev, runs=5)
+    data = mlp_bwd_probe.make_data(dev)
+    ab = mlp_bwd_probe.ab(data, runs=5)
+    launches = dict(K.LAUNCHES)
+    del data
+    torch.cuda.empty_cache()
+    # fused stacks: 2 arms x (1 checked + 7 timed forwards, 7 timed
+    # forward + backward); kernel stacks: 7 timed
+    want = {"ln_linear": 2 * 15 * ln_linear_probe.config().num_layers,
+            "mlp_bwd_dx": 7 * mlp_bwd_probe.L}
+    if any(launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"probe launches {launches}, expected {want}")
+    for k in ("fwd", "fwdbwd"):
+        print(f"probes: ln_linear_probe {k}: unfused "
+              f"{ln['unfused_' + k]:.3f} ms/stack, fused "
+              f"{ln['fused_' + k]:.3f} ms/stack", flush=True)
+    for k, v in ab.items():
+        print(f"probes: mlp_bwd_probe ab {k}: {v:.3f} ms/stack "
+              f"({mlp_bwd_probe.tflops(v):.1f} TFLOP/s)", flush=True)
+    print(json.dumps({"probes": {"ln_linear_probe": ln, "mlp_bwd_probe": ab}}))
+    return launches
+
+
 def profile_step(name, run):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -998,7 +1434,9 @@ def profile_step(name, run):
                and not e.key.startswith("Optimizer.")]
     # first match wins: the backward kernels' symbols (attention_bwd_*,
     # short_attention_bwd) before the forward ones'
-    groups = {"attention backward kernels": ("attention_bwd",),
+    groups = {"ln_linear (K5)": ("ln_linear",),
+              "mlp_bwd_dx (K6)": ("mlp_bwd_dx",),
+              "attention backward kernels": ("attention_bwd",),
               "attention kernels": ("attention_bf16", "attention_f32",
                                     "short_attention"),
               "GEMM": ("gemm", "nvjet", "cutlass", "xmma"),
@@ -1017,7 +1455,9 @@ def profile_step(name, run):
           flush=True)
     # the 12 largest, then the port's own kernels that are not among them
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
-    for e in ranked[:12] + [e for e in ranked[12:] if "attention" in e.key]:
+    ours = ("attention", "ln_linear", "mlp_bwd_dx")
+    for e in ranked[:12] + [e for e in ranked[12:]
+                            if any(k in e.key for k in ours)]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} "
               f"{e.key[:90]}")
 
@@ -1025,8 +1465,8 @@ def profile_step(name, run):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one eval, train, eval3 and train3 "
-                         "step with torch.profiler")
+                    help="also trace one eval, train, eval3, train3, ln2fc1 "
+                         "eval and ln2fc1 train step with torch.profiler")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1049,10 +1489,11 @@ def main() -> int:
                    if "Compiling entry" in ln or "registers" in ln]
         main = [entries[i + 1].split(": ")[-1]
                 for i in range(len(entries) - 1)
-                if "bf16ILi64E" in entries[i]
-                or "bfloat16Li64ELi8E" in entries[i]]
-        print(f"build csrc/{src}.cu: {seconds:.1f} s; bf16 hd=64 kernels: "
-              f"{main}", flush=True)
+                if any(k in entries[i] for k in (
+                    "bf16ILi64E", "bfloat16Li64ELi8E", "ln_linear_bf16",
+                    "mlp_bwd_dx_bf16ILi32ELi32ELi1024E"))]
+        print(f"build csrc/{src}.cu: {seconds:.1f} s; the main path's bf16 "
+              f"kernels: {main}", flush=True)
         out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                "chiprun_out")
         os.makedirs(out_dir, exist_ok=True)
@@ -1065,13 +1506,22 @@ def main() -> int:
     paths = {"eval": slice_phase(dev, rng, card, args.profile),
              "train": train_phase(dev, rng, card, args.profile),
              "eval3": eval3_phase(dev, rng, card, args.profile),
-             "train3": train3_phase(dev, rng, card, args.profile)}
+             "train3": train3_phase(dev, rng, card, args.profile),
+             **ln2fc1_phase(dev, rng, card, args.profile),
+             "probes": probes_phase(dev)}
     for row in rows:
-        # launches: over the counted steps of every path that runs it
-        row["launches"] = sum(p[row["name"]] for p in paths.values())
-        row["launches_per_step"] = {path: p[row["name"]] // STEPS
+        # launches: over the counted steps of every path that runs it, and
+        # the probes' stacks
+        kernel = row["name"]
+        row["launches"] = sum(p[kernel] for p in paths.values())
+        row["launches_per_step"] = {path: p[kernel] // STEPS
                                     for path, p in paths.items()
-                                    if p[row["name"]]}
+                                    if p[kernel] and path != "probes"}
+        if paths["probes"][kernel]:
+            row["probe_launches"] = paths["probes"][kernel]
+        if not row["launches"]:
+            raise AssertionError(f"{kernel} was launched no time on its "
+                                 f"paths")
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

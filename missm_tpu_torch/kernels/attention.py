@@ -41,18 +41,10 @@ import ctypes
 import torch
 
 from . import build
-
-LAUNCHES = {"attention": 0, "attention_unsplit": 0, "attention_bwd": 0,
-            "attention_unsplit_bwd": 0, "causal_attention": 0,
-            "short_attention": 0, "short_attention_bwd": 0}
+from .launches import LAUNCHES, reset_launches  # noqa: F401 (re-exported)
 
 _HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)  # instantiated in every .cu
 SHORT_MAX_T = 32  # the longest instance csrc/short_attention.cu takes
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -388,9 +380,7 @@ def _launch_bwd(q, k, v, out, lse, g, num_heads):
 def _function(source, name, n_pointers, n_ints):
     """csrc/<source>.cu's C entry point `name`, which takes n_pointers
     pointers, n_ints ints, the float scale and the stream."""
-    fn = getattr(build.load(source), name)
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+    return build.function(source, name,
+                          [ctypes.c_void_p] * n_pointers
+                          + [ctypes.c_int] * n_ints
+                          + [ctypes.c_float, ctypes.c_void_p])

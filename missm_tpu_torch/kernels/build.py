@@ -85,3 +85,14 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built first if needed."""
     _finish(name, _start(name))
     return ctypes.CDLL(str(_library_path(name)))
+
+
+def function(source: str, name: str, argtypes):
+    """csrc/<source>.cu's C entry point `name`, taking `argtypes` (ctypes
+    types: c_void_p for each pointer and the stream) and returning the CUDA
+    error code as an int."""
+    fn = getattr(load(source), name)
+    if fn.argtypes is None:
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return fn

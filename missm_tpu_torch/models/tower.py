@@ -7,7 +7,10 @@ per-layer dicts walked by a Python loop where JAX stacks them [L, ...] for
 and on 5-D video input [B, C, T, H, W] with the temporal blocks (temporal
 embedding, temporal attention, optional temporal MLP), forward and backward,
 with full per-block remat. Tube-3D embedding, 7-D input, patch dropout and
-the named remat policies raise NotImplementedError.
+the named remat policies raise NotImplementedError. With
+kernels.ln_linear.FUSE_LN2_FC1 on (off by default, as in the JAX package),
+each block's ln2 -> fc1 goes through the fused kernel wherever its shape
+rule admits it.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..core.config import TextConfig, TowerConfig, VisionConfig
+from ..kernels import ln_linear as _lnl
 from ..ops.attention import multi_head_attention, short_attention
 from ..ops.basic import get_activation, layer_norm, linear
 
@@ -189,8 +193,13 @@ def _block(p, x, *, num_heads, act, eps, causal=False, key_bias=None,
     h = x + multi_head_attention(p["attn"], layer_norm(p["ln1"], x, eps),
                                  num_heads=num_heads, causal=causal,
                                  key_bias=key_bias, lora_scaling=lora_scaling)
-    wide = act(linear(p["mlp"]["fc1"], layer_norm(p["ln2"], h, eps)))
-    return h + linear(p["mlp"]["fc2"], wide)
+    # ln2 -> fc1 through the fused kernel only where the switch is on and the
+    # JAX package's shape rule admits it (the temporal MLP stays unfused)
+    if _lnl.FUSE_LN2_FC1 and _lnl.ln_linear_available(h, p["mlp"]["fc1"]):
+        wide = _lnl.ln_linear(h, p["ln2"], p["mlp"]["fc1"], eps)
+    else:
+        wide = linear(p["mlp"]["fc1"], layer_norm(p["ln2"], h, eps))
+    return h + linear(p["mlp"]["fc2"], act(wide))
 
 
 def _block_forward(p, x, *, remat=False, **kwargs):

@@ -94,6 +94,18 @@ def linear(params, x, *, lora_scaling: float | None = None):
     return F.linear(x, params["w"].t(), params.get("b"))
 
 
+def matmul_f32(a, b):
+    """a @ b for 2-D a and b, summed and returned in f32 (XLA's
+    preferred_element_type=float32). A bf16 product on CUDA writes f32
+    directly (torch.mm's out_dtype); elsewhere (the CPU's mm takes no
+    out_dtype, or the types differ) the operands are upcast first, which
+    gives the same products (bf16 x bf16 is exact in f32)."""
+    if (a.device.type == "cuda" and a.dtype == b.dtype
+            and a.dtype != torch.float32):
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
 def l2_normalize(x, dim: int = -1, eps: float = 0.0):
     """x / ||x||_2 with no epsilon (torch `x / x.norm(dim=-1, keepdim=True)`)."""
     return x / torch.sqrt(x.square().sum(dim=dim, keepdim=True) + eps)

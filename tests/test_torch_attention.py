@@ -407,4 +407,5 @@ def test_wrappers_on_cpu_use_the_plain_version_and_count_nothing(rng):
     assert kernels.LAUNCHES == {"attention": 0, "attention_unsplit": 0,
                                 "attention_bwd": 0, "attention_unsplit_bwd": 0,
                                 "causal_attention": 0, "short_attention": 0,
-                                "short_attention_bwd": 0}
+                                "short_attention_bwd": 0, "ln_linear": 0,
+                                "mlp_bwd_dx": 0}

@@ -11,6 +11,8 @@ import torch
 
 from missm_tpu_torch.core.config import tiny_tower
 from missm_tpu_torch.kernels import attention as kernels
+from missm_tpu_torch.kernels import ln_linear as lnl
+from missm_tpu_torch.kernels import mlp_bwd
 from missm_tpu_torch.models import finetune
 from missm_tpu_torch.models.fusion import FusionConfig
 from missm_tpu_torch.train.step import init_train_state, make_train_step
@@ -447,3 +449,216 @@ def test_tiny_video_audio_train_step_on_the_card_matches_the_cpu(
     assert len(grads_gpu) == len(grads_cpu)
     for i, (x, w) in enumerate(zip(grads_gpu, grads_cpu)):
         assert _rel(x, w) <= 1e-4 or (w.norm() < 1e-8 and x.norm() < 1e-8), i
+
+
+# ---------------------------------------------------------------------------
+# K5 (ln_linear) and K6 (mlp_bwd_dx)
+# ---------------------------------------------------------------------------
+
+
+def _ln_inputs(gen, shape, f, dtype, bias):
+    d = shape[-1]
+    x = torch.randn(*shape, generator=gen, device=gen.device) * 2 + 0.5
+    ln = {"scale": 1 + 0.1 * torch.randn(d, generator=gen, device=gen.device),
+          "bias": 0.1 * torch.randn(d, generator=gen, device=gen.device)}
+    lin = {"w": torch.randn(d, f, generator=gen, device=gen.device)
+           * (2 * d) ** -0.5}
+    if bias:
+        lin["b"] = 0.1 * torch.randn(f, generator=gen, device=gen.device)
+    cast = finetune.cast_tree
+    return x.to(dtype), cast(ln, dtype), cast(lin, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("d", [768, 1024])
+@pytest.mark.parametrize("m", [1232, 1000])
+def test_ln_linear_kernel_matches_plain(cuda, monkeypatch, m, d, bias, dtype):
+    """K5 at ragged row counts (1232 = 16 * 77, a train microbatch's text
+    rows, and 1000: neither a multiple of the 64-row tile), against its
+    plain version."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x, ln, lin = _ln_inputs(gen, (m, d), 4 * d, dtype, bias)
+    kernels.reset_launches()
+    got = lnl.ln_linear(x, ln, lin)
+    ref = lnl.ln_linear_plain(x, ln, lin)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (m, 4 * d)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+    assert kernels.LAUNCHES == _counts(ln_linear=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ln_linear_kernel_takes_3d_input_and_bf16_vectors(cuda, monkeypatch,
+                                                          dtype):
+    """[16, 77, 768] input, the text tower's shape; in bf16 with gamma, beta
+    and the bias left in f32 (the kernel reads either type)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    x, ln, lin = _ln_inputs(gen, (16, 77, 768), 3072, dtype, True)
+    if dtype == torch.bfloat16:
+        ln = finetune.cast_tree(ln, torch.float32)
+        lin["b"] = lin["b"].float()
+    kernels.reset_launches()
+    got = lnl.ln_linear(x, ln, lin)
+    ref = lnl.ln_linear_plain(x, ln, lin)
+    torch.cuda.synchronize()
+    assert got.shape == (16, 77, 3072) and got.dtype == dtype
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+    assert kernels.LAUNCHES == _counts(ln_linear=1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("frozen", [False, True])
+def test_ln_linear_wrapper_carries_gradients(cuda, monkeypatch, dtype, frozen):
+    """Autograd through the wrapper (K5 forward, plain backward) against
+    autograd of the plain version in f32: dx, dgamma, dbeta, dW and db, or
+    no dW for a frozen W."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x, ln, lin = _ln_inputs(gen, (1232, 768), 3072, dtype, True)
+    g = torch.randn(1232, 3072, generator=gen, device=cuda).to(dtype)
+    leaves = [x, ln["scale"], ln["bias"], lin["w"], lin["b"]]
+    for i, t in enumerate(leaves):
+        t.requires_grad_(not (frozen and i == 3))
+    kernels.reset_launches()
+    out = lnl.ln_linear(x, ln, lin)
+    want = [t for t in leaves if t.requires_grad]
+    got = torch.autograd.grad(out, want, g)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == _counts(ln_linear=1)
+    assert lin["w"].requires_grad != frozen
+    ref_leaves = [t.detach().float().requires_grad_(t.requires_grad)
+                  for t in leaves]
+    ref_out = lnl.ln_linear_plain(
+        ref_leaves[0], {"scale": ref_leaves[1], "bias": ref_leaves[2]},
+        {"w": ref_leaves[3], "b": ref_leaves[4]})
+    ref = torch.autograd.grad(ref_out, [t for t in ref_leaves
+                                        if t.requires_grad], g.float())
+    assert len(got) == len(ref) == (4 if frozen else 5)
+    for i, (x_, r) in enumerate(zip(got, ref)):
+        assert x_.dtype == dtype and torch.isfinite(x_).all(), i
+        assert _rel(x_, r) <= GRAD_TOL[dtype], (i, _rel(x_, r))
+
+
+def test_ln_linear_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros(8, 256, device=cuda)
+    ln = {"scale": torch.ones(256, device=cuda),
+          "bias": torch.zeros(256, device=cuda)}
+    w = torch.zeros(256, 384, device=cuda)
+    with pytest.raises(ValueError):
+        lnl.ln_linear(x.half(), ln, {"w": w.half()})                  # dtype
+    with pytest.raises(ValueError):
+        lnl.ln_linear(x, ln, {"w": w.bfloat16()})                     # mixed
+    with pytest.raises(ValueError):
+        lnl.ln_linear(x[:, :200], {k: v[:200] for k, v in ln.items()},
+                      {"w": w[:200]})                                 # D
+    with pytest.raises(ValueError):
+        lnl.ln_linear(x, ln, {"w": w[:, :300].contiguous()})          # F
+    with pytest.raises(ValueError):
+        lnl.ln_linear(x, ln, {"w": w, "b": torch.zeros(3, device=cuda)})
+    with pytest.raises(ValueError):
+        lnl.ln_linear(x, {"scale": ln["scale"].half(), "bias": ln["bias"]},
+                      {"w": w})                                       # gamma
+
+
+MLP_CASES = [(80, 1024, 4096), (4112, 1024, 4096), (16448, 1024, 4096),
+             (80, 128, 256), (200, 768, 3072)]
+
+
+def _mlp_inputs(gen, m, d, ff, dtype):
+    dy = torch.randn(m, d, generator=gen, device=gen.device)
+    wide = torch.randn(m, ff, generator=gen, device=gen.device) * 0.5
+    w1 = torch.randn(d, ff, generator=gen, device=gen.device) * 0.02
+    w2 = torch.randn(ff, d, generator=gen, device=gen.device) * 0.02
+    return [t.to(dtype) for t in (dy, wide, w1, w2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d,ff", MLP_CASES)
+def test_mlp_bwd_dx_kernel_matches_plain(cuda, monkeypatch, m, d, ff, dtype):
+    """K6 at M = 80 (one ragged block), 4112 (a microbatch of 16 images)
+    and 16448 (the probe's 64 images), and at other widths."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    args = _mlp_inputs(gen, m, d, ff, dtype)
+    kernels.reset_launches()
+    got = mlp_bwd.mlp_bwd_dx(*args)
+    ref = mlp_bwd.mlp_bwd_dx_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (m, d)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+    assert kernels.LAUNCHES == _counts(mlp_bwd_dx=1)
+
+
+@pytest.mark.parametrize("tile", mlp_bwd.TILES)
+def test_mlp_bwd_dx_kernel_tiles_agree(cuda, tile):
+    """Every tile the probe sweeps gives the plain version's result."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    args = _mlp_inputs(gen, 4112, 1024, 4096, torch.bfloat16)
+    got = mlp_bwd.mlp_bwd_dx(*args, tile=tile)
+    ref = mlp_bwd.mlp_bwd_dx_plain(*args)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+def test_mlp_bwd_dx_rejects_what_the_kernel_does_not_take(cuda):
+    dy, wide, w1, w2 = _mlp_inputs(torch.Generator(device=cuda), 16, 128, 256,
+                                   torch.bfloat16)
+    with pytest.raises(ValueError):
+        mlp_bwd.mlp_bwd_dx(dy.float(), wide, w1, w2)                  # mixed
+    with pytest.raises(ValueError):
+        mlp_bwd.mlp_bwd_dx(dy, wide[:, :128], w1, w2)                 # shape
+    with pytest.raises(ValueError):
+        mlp_bwd.mlp_bwd_dx(dy, wide, w1, w2, tile=(16, 32))           # tile
+    d = torch.zeros(16, 192, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        mlp_bwd.mlp_bwd_dx(d, wide, w1[:1].expand(192, 256).contiguous(),
+                           w2[:, :1].expand(256, 192).contiguous())   # D
+    with pytest.raises(ValueError):
+        mlp_bwd.mlp_bwd_dx(dy, wide[:, :200].contiguous(), w1[:, :200]
+                           .contiguous(), w2[:200].contiguous())      # FF
+
+
+def test_fused_tiny_eval_step_on_the_card(cuda, monkeypatch):
+    """A tiny image+text model at width 128 (which the gate admits) with the
+    switch on: each block's ln2 -> fc1 launches K5, and the card's f32 eval
+    outputs match the CPU's (the plain version through the same switch)."""
+    import dataclasses
+
+    from missm_tpu_torch.train.step import make_eval_step
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(lnl, "FUSE_LN2_FC1", True)
+    wide = dict(hidden_size=128, intermediate_size=256)
+    tower = tiny_tower("image", **wide)
+    tower = dataclasses.replace(tower, text=dataclasses.replace(tower.text,
+                                                                **wide))
+    cfg = finetune.ModelConfig(
+        towers=(("image", tower),),
+        fusion=FusionConfig(fusion_type="sum",
+                            modality_types=("language", "image"),
+                            output_dims=3, feature_dims=24, fusion_dim=16))
+    params = finetune.init_model_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(3)
+    ids = rng.integers(1, 98, size=(8, 16)).astype(np.int32)
+    ids[:, 9] = 98
+    data = {"language": ids,
+            "image": rng.standard_normal((8, 3, 32, 32)).astype(np.float32)}
+    labels, missing = np.arange(8) % 3, np.array([0, 1, 4, 0] * 2)
+    ref = make_eval_step(cfg, device="cpu")(params, data, labels, missing)
+    card = finetune.tree_map(lambda t: t.to(cuda), params)
+    kernels.reset_launches()
+    got = make_eval_step(cfg, device=cuda)(card, data, labels, missing)
+    torch.cuda.synchronize()
+    # 2 layers per tower; the image tower's N = 5 takes the unsplit route
+    assert kernels.LAUNCHES == _counts(attention_unsplit=2, causal_attention=2,
+                                       ln_linear=4)
+    torch.testing.assert_close(got["probs"].cpu(), ref["probs"], atol=1e-4,
+                               rtol=1e-4)
