@@ -19,13 +19,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 [64*257, 1024] -> 4096 with bias and text [64*77, 768] ->
                 3072 without, and at the train microbatch's image and ragged
                 text [16*77, 768] rows with its backward; probes: K6 at
-                [16448, 1024, 4096]), against its plain PyTorch version in
-                f32 and bf16, each launch counted under its own name;
-                times the kernel, the plain version and one PyTorch library
-                call doing the same work (CUDA events, median of 7 runs of
-                20 launches, inputs rotated through enough copies to miss
-                the 50 MB L2), and works out the least time the card could
-                take.
+                [16448, 1024, 4096], and the probes' attention kernels, P1
+                at [1024, 257, 64], P2 at [64, 16, 257, 64], P3 and P4 in
+                each of its modes at [64, 257, 16*64]), against its plain
+                PyTorch version in f32 and bf16, each launch counted under
+                its own name; times the kernel, the plain version and one
+                PyTorch library call doing the same work where there is one
+                (CUDA events, median of 7 runs of 20 launches, inputs
+                rotated through enough copies to miss the 50 MB L2), and
+                works out the least time the card could take.
   4. eval     - the flagship eval step (LanguageBind ViT-L/14 image tower +
                 CLIP text tower + `sum` head, seeded random weights, bf16
                 encoder, B=64, missing codes rotating over {0, 1, 4}) through
@@ -78,10 +80,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 Then holds the card's fused f32 logits for 8 rows against
                 the CPU's plain path, and one step's card f32 gradients for
                 8 rows fused against unfused (TF32 off).
-  9. probes   - both probes' A/B once (missm_tpu_torch.probes): the 24-layer
-                image stack at B=64, fused and unfused, and 24 chained
-                layers of K6 against the cuBLAS chain; prints ms per stack
-                and checks the launches of K5 and K6.
+  9. probes   - every probe once (missm_tpu_torch.probes): the 24-layer
+                image stack at B=64, fused and unfused; 24 chained layers
+                of K6 against the cuBLAS chain; P1 at each of its tiles
+                beside the einsum forms and SDPA; the image stack with each
+                ablation arm (identity, production K1, P4 dotsonly, noexp,
+                nostage and full, P3, P2). Prints ms per stack or call,
+                checks the launches of K5, K6 and P1-P4 and that the arms
+                computing softmax attention agree with production.
  10. summary  - a `{"kernels": [...]}` line, the card's name and power limit,
                 and as the last line {"ok": true, "device": {...}}.
 --profile adds one torch.profiler-traced step of each of eval, train, eval3,
@@ -122,6 +128,12 @@ TOL = {torch.float32: (1e-4, 0.0),      # summation order only
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 LOGITS_F32_ATOL = 1e-3                  # card f32 vs CPU f32, 24 + 12 layers
 GRADS_F32_RTOL = 1e-3                   # the same, for the gradients
+# The ablation arms that compute softmax attention (each rounding P at its
+# own place) against the production arm's output after 24 bf16 blocks,
+# ||arm - production|| / ||production||.
+ABLATION_SAME = ("packed full", "packed nostage", "scratch", "bhne")
+ABLATION_RTOL = 2e-2
+DOTS_BF16_RTOL = 2 ** -8                # P4 dotsonly, ||err|| / ||ref||
 
 
 def card_line() -> str:
@@ -337,6 +349,7 @@ def kernel_phase(dev, rng):
     for spec in backward_specs():
         rows.append(backward_row(dev, gen, spec, by_name[spec["forward"]]))
     rows += [ln_linear_row(dev, gen), mlp_bwd_row(dev, gen)]
+    rows += probe_rows(dev, gen)
     for row in rows:
         summarise_checks(row)
     return rows
@@ -525,6 +538,136 @@ def mlp_bwd_row(dev, gen):
           f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
           f"({row['bound_by']})", flush=True)
     return row
+
+
+def probe_check(dev, gen, label, shape, run, plain, counter,
+                unnormalised=False):
+    """A forward-only probe wrapper against its plain version on seeded
+    inputs of `shape`, in f32 and bf16, each call launching once under
+    `counter` and nowhere else. `unnormalised` (P4 dotsonly, whose outputs
+    are sums of s v, ~100 here): f32 within 1e-4 of the output's scale, and
+    bf16 within DOTS_BF16_RTOL in norm, since where the two f32 scores
+    straddle a bf16 rounding boundary e = s rounds one way in each and the
+    output moves by one ulp of s times v, more than TOL's atol."""
+    from missm_tpu_torch.kernels import attention as K
+
+    check = {"shape": "x".join(map(str, shape))}
+    for dtype, tag in DTYPES:
+        q, k, v = (torch.randn(*shape, generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+        before = dict(K.LAUNCHES)
+        with torch.no_grad():
+            got = run(q, k, v)
+            via = {name: K.LAUNCHES[name] - before[name] for name in before}
+            ref = plain(q, k, v)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        atol, rtol = TOL[dtype]
+        if unnormalised:
+            scale = max(1.0, ref.float().abs().max().item())
+            rel = (err.norm() / ref.float().norm()).item()
+            check[f"rel_err_{tag}"] = rel
+            bad = (err.max().item() > atol * scale if dtype == torch.float32
+                   else rel > DOTS_BF16_RTOL)
+        else:
+            bad = (err > atol + rtol * ref.float().abs()).any()
+        if (bad or not torch.isfinite(got).all()
+                or via != dict(dict.fromkeys(via, 0), **{counter: 1})):
+            raise AssertionError(f"{label} {tag}: kernel disagrees with the "
+                                 f"plain version, max abs err "
+                                 f"{err.max().item():.3e}, launches {via}")
+        check[f"max_abs_err_{tag}"] = err.max().item()
+        del q, k, v, got, ref, err
+    print(f"check {label} [{check['shape']}]: max abs err f32 "
+          f"{check['max_abs_err_f32']:.2e} bf16 {check['max_abs_err_bf16']:.2e}",
+          flush=True)
+    return check
+
+
+def probe_rows(dev, gen):
+    """The timing probes' kernels (csrc/probe_attention.cu) through their
+    wrappers at the probes' shapes: P1 [1024, 257, 64] head-major, P2 [64,
+    16, 257, 64], P3 and each mode of P4 [64, 257, 16*64]; each against its
+    plain version in f32 and bf16, timed in bf16 against the plain version
+    and SDPA (none for noexp and dotsonly, which no PyTorch call computes).
+    The bound: q, k and v read and the output written once (134.7 MB)
+    against 4 N^2 hd FLOP per (batch, head) slice (17.3 GFLOP)."""
+    from missm_tpu_torch.kernels import probe_attention as pa
+    from missm_tpu_torch.probes import ablation_probe, attn_probe
+
+    cfg = ablation_probe.config()
+    b, n, heads = ablation_probe.B, cfg.seq_len, cfg.num_heads
+    hd = cfg.hidden_size // heads
+    tokens = (b, n, heads * hd)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_tokens(q, k, v):
+        def heads_first(t):
+            return t.view(b, n, heads, hd).transpose(1, 2)
+        return sdpa(heads_first(q), heads_first(k), heads_first(v))
+
+    script = "scripts/ablation_probe.py"
+    specs = [
+        dict(name="attn_probe_fused", shape=(attn_probe.BH, attn_probe.N,
+                                             attn_probe.HD),
+             replaces="scripts/attn_probe.py:47 (make_fused, pallas_call at "
+                      "73)",
+             run=pa.attn_probe_fused, plain=pa.rows_attention_plain,
+             library=attn_probe.sdpa),
+        dict(name="tower_bhne", shape=(b, heads, n, hd),
+             replaces=f"{script}:84 (make_tower_bhne, pallas_call at 112)",
+             run=pa.tower_bhne, plain=pa.rows_attention_plain, library=sdpa),
+        dict(name="tower_scratch", shape=tokens,
+             replaces=f"{script}:152 (make_tower_scratch, pallas_call at "
+                      f"183)",
+             run=lambda q, k, v: pa.tower_scratch(q, k, v, heads),
+             plain=lambda q, k, v: pa.rows_attention_plain(
+                 q, k, v, layout="tokens", num_heads=heads),
+             library=sdpa_tokens),
+        *[dict(name=f"tower_packed_debug[{mode}]", counter="tower_packed_debug",
+               arm=f"packed {mode}", shape=tokens,
+               unnormalised=mode == "dotsonly",
+               replaces=f"{script}:210 (make_tower_packed_debug, mode "
+                        f"{mode!r}, pallas_call at 291)",
+               run=lambda q, k, v, mode=mode: pa.tower_packed_debug(
+                   q, k, v, heads, mode),
+               plain=lambda q, k, v, mode=mode: pa.packed_attention_plain(
+                   q, k, v, heads, mode),
+               library=sdpa_tokens if mode in ("full", "nostage") else None)
+          for mode in pa.MODES],
+    ]
+    rows = []
+    for s in specs:
+        counter = s.get("counter", s["name"])
+        row = {"name": s["name"], "route": "cuda",
+               "source": "missm_tpu_torch/csrc/probe_attention.cu",
+               "replaces": s["replaces"], "shape": "x".join(map(str, s["shape"])),
+               "checks": {"probes": probe_check(
+                   dev, gen, s["name"], s["shape"], s["run"], s["plain"],
+                   counter, s.get("unnormalised", False))}}
+        for key in ("counter", "arm"):
+            if key in s:
+                row[key] = s[key]
+        q, k, v = (torch.randn(*s["shape"], generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        row["ms"] = median_ms(lambda: s["run"](q, k, v))
+        row["plain_ms"] = median_ms(lambda: s["plain"](q, k, v))
+        row["library_ms"] = (None if s["library"] is None
+                             else median_ms(lambda: s["library"](q, k, v)))
+        if s["library"] is None:
+            row["library"] = "none: no PyTorch call computes this function"
+        slices = q.numel() // (n * hd)
+        row["bound_ms"], row["bound_by"] = bound(4 * q.numel() * 2,
+                                                 4 * slices * n * n * hd)
+        print(f"kernel {s['name']} [{row['shape']}]: bf16 kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
+              + ("none" if row["library_ms"] is None
+                 else f"{row['library_ms']:.4f} ms")
+              + f", bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
+              flush=True)
+        del q, k, v
+        rows.append(row)
+    return rows
 
 
 def backward_specs():
@@ -1383,37 +1526,94 @@ def ln2fc1_grads(dev, rng):
 
 
 def probes_phase(dev):
-    """Both probes' A/B once, every count from 0: the ln_linear probe (the
-    24-layer image stack at B=64, forward and forward + backward, switch off
-    and on) and the mlp_bwd probe (24 chained layers at [16448, 1024, 4096],
-    the library chain and K6). Checks the launches of K5 (each fused stack
-    once per block) and K6 (once per layer of each kernel stack); returns
-    the launch counts."""
+    """Every probe once, every count from 0 (missm_tpu_torch.probes): the
+    ln_linear probe (the 24-layer image stack at B=64, forward and forward
+    + backward, switch off and on), the mlp_bwd probe (24 chained layers at
+    [16448, 1024, 4096], the library chain and K6), the attention probe (P1
+    at [1024, 257, 64] at each of its tiles beside the einsums and SDPA)
+    and the ablation probe (the image stack with each attention arm).
+    Checks the launches: K5 once per block of each fused stack, K6 once per
+    layer of each kernel stack, P1 once per parity and timed call, each
+    ablation arm 24 of its own route per stack and nothing else, and none
+    of P1-P4 from the first two probes; the P1 parity within TOL; every
+    ablation output finite, and the arms that compute softmax attention
+    within ABLATION_RTOL of the production arm. Returns (the launch counts,
+    the ablation result)."""
     from missm_tpu_torch.kernels import attention as K
-    from missm_tpu_torch.probes import ln_linear_probe, mlp_bwd_probe
+    from missm_tpu_torch.kernels import probe_attention as pa
+    from missm_tpu_torch.probes import (ablation_probe, attn_probe,
+                                        ln_linear_probe, mlp_bwd_probe)
 
+    runs = 5
     K.reset_launches()
-    ln = ln_linear_probe.run(dev, runs=5)
+    ln = ln_linear_probe.run(dev, runs=runs)
     data = mlp_bwd_probe.make_data(dev)
-    ab = mlp_bwd_probe.ab(data, runs=5)
-    launches = dict(K.LAUNCHES)
+    ab = mlp_bwd_probe.ab(data, runs=runs)
     del data
     torch.cuda.empty_cache()
+    new = ("attn_probe_fused", "tower_bhne", "tower_scratch",
+           "tower_packed_debug")
     # fused stacks: 2 arms x (1 checked + 7 timed forwards, 7 timed
     # forward + backward); kernel stacks: 7 timed
     want = {"ln_linear": 2 * 15 * ln_linear_probe.config().num_layers,
-            "mlp_bwd_dx": 7 * mlp_bwd_probe.L}
-    if any(launches[k] != n for k, n in want.items()):
-        raise AssertionError(f"probe launches {launches}, expected {want}")
-    for k in ("fwd", "fwdbwd"):
-        print(f"probes: ln_linear_probe {k}: unfused "
-              f"{ln['unfused_' + k]:.3f} ms/stack, fused "
-              f"{ln['fused_' + k]:.3f} ms/stack", flush=True)
-    for k, v in ab.items():
-        print(f"probes: mlp_bwd_probe ab {k}: {v:.3f} ms/stack "
-              f"({mlp_bwd_probe.tflops(v):.1f} TFLOP/s)", flush=True)
-    print(json.dumps({"probes": {"ln_linear_probe": ln, "mlp_bwd_probe": ab}}))
-    return launches
+            "mlp_bwd_dx": 7 * mlp_bwd_probe.L, **dict.fromkeys(new, 0)}
+    if any(K.LAUNCHES[k] != n for k, n in want.items()):
+        raise AssertionError(f"probe launches {dict(K.LAUNCHES)}, expected "
+                             f"{want}")
+
+    q, k, v = attn_probe.make_inputs(dev)
+    with torch.inference_mode():
+        par = attn_probe.parity(q, k, v)
+    attn = attn_probe.run(q, k, v, runs=runs)
+    del q, k, v
+    atol, rtol = TOL[torch.bfloat16]
+    if not all(e <= atol + rtol * par["scale"]
+               for e in par["max_abs_err"].values()):
+        raise AssertionError(f"attn_probe parity {par}")
+    want_p1 = len(pa.ROWS) * (1 + 2 + runs)
+    if K.LAUNCHES["attn_probe_fused"] != want_p1:
+        raise AssertionError(f"attn_probe launched P1 "
+                             f"{K.LAUNCHES['attn_probe_fused']} times, "
+                             f"expected {want_p1}")
+
+    abl = ablation_probe.run(dev, runs=runs)
+    depth = ablation_probe.config().num_layers
+    routes = {"production": "attention", "scratch": "tower_scratch",
+              "bhne": "tower_bhne"}
+    for arm, launched in abl["launches"].items():
+        route = routes.get(arm, "tower_packed_debug"
+                           if arm.startswith("packed") else None)
+        expect = {} if route is None else {route: depth * (1 + 2 + runs)}
+        if launched != expect:
+            raise AssertionError(f"ablation arm {arm} launched {launched}, "
+                                 f"expected {expect}")
+    bad = [arm for arm in ABLATION_SAME
+           if not abl["rel_err"][arm] <= ABLATION_RTOL]
+    if bad or not all(abl["finite"].values()):
+        raise AssertionError(f"ablation outputs: rel_err {abl['rel_err']}, "
+                             f"finite {abl['finite']}")
+    launches = dict(K.LAUNCHES)
+    torch.cuda.empty_cache()
+
+    for key in ("fwd", "fwdbwd"):
+        print(f"probes: ln_linear_probe {key}: unfused "
+              f"{ln['unfused_' + key]:.3f} ms/stack, fused "
+              f"{ln['fused_' + key]:.3f} ms/stack", flush=True)
+    for key, val in ab.items():
+        print(f"probes: mlp_bwd_probe ab {key}: {val:.3f} ms/stack "
+              f"({mlp_bwd_probe.tflops(val):.1f} TFLOP/s)", flush=True)
+    print(f"probes: attn_probe parity max abs err "
+          f"{par['max_abs_err']} (scale {par['scale']:.3f})", flush=True)
+    for key, val in attn.items():
+        print(f"probes: attn_probe {key}: {val:.4f} ms", flush=True)
+    for arm, val in abl["ms"].items():
+        print(f"probes: ablation_probe {arm}: {val:.3f} ms/stack "
+              f"({abl['img_per_s'][arm]:.1f} img/s), output vs production "
+              f"{abl['rel_err'][arm]:.3e}", flush=True)
+    print(json.dumps({"probes": {"ln_linear_probe": ln, "mlp_bwd_probe": ab,
+                                 "attn_probe": attn, "attn_probe_parity": par,
+                                 "ablation_probe": abl}}))
+    return launches, abl
 
 
 def profile_step(name, run):
@@ -1491,7 +1691,8 @@ def main() -> int:
                 for i in range(len(entries) - 1)
                 if any(k in entries[i] for k in (
                     "bf16ILi64E", "bfloat16Li64ELi8E", "ln_linear_bf16",
-                    "mlp_bwd_dx_bf16ILi32ELi32ELi1024E"))]
+                    "mlp_bwd_dx_bf16ILi32ELi32ELi1024E", "rows_bf16ILi4E",
+                    "scratch_bf16"))]
         print(f"build csrc/{src}.cu: {seconds:.1f} s; the main path's bf16 "
               f"kernels: {main}", flush=True)
         out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1502,23 +1703,33 @@ def main() -> int:
     K.reset_launches()
 
     rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
     rows = kernel_phase(dev, rng)
-    paths = {"eval": slice_phase(dev, rng, card, args.profile),
-             "train": train_phase(dev, rng, card, args.profile),
-             "eval3": eval3_phase(dev, rng, card, args.profile),
-             "train3": train3_phase(dev, rng, card, args.profile),
-             **ln2fc1_phase(dev, rng, card, args.profile),
-             "probes": probes_phase(dev)}
+    print(f"phase kernels: {time.perf_counter() - t0:.1f} s", flush=True)
+    paths = {}
+    for path, phase in (("eval", slice_phase), ("train", train_phase),
+                        ("eval3", eval3_phase), ("train3", train3_phase),
+                        ("ln2fc1", ln2fc1_phase)):
+        t0 = time.perf_counter()
+        launches = phase(dev, rng, card, args.profile)
+        paths.update(launches if path == "ln2fc1" else {path: launches})
+        print(f"phase {path}: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    paths["probes"], ablation = probes_phase(dev)
+    print(f"phase probes: {time.perf_counter() - t0:.1f} s", flush=True)
     for row in rows:
         # launches: over the counted steps of every path that runs it, and
-        # the probes' stacks
-        kernel = row["name"]
+        # the probes' stacks (a P4 row: its own mode's ablation arm)
+        kernel = row.get("counter", row["name"])
         row["launches"] = sum(p[kernel] for p in paths.values())
         row["launches_per_step"] = {path: p[kernel] // STEPS
                                     for path, p in paths.items()
                                     if p[kernel] and path != "probes"}
+        if "arm" in row:
+            row["launches"] = ablation["launches"][row["arm"]].get(kernel, 0)
         if paths["probes"][kernel]:
-            row["probe_launches"] = paths["probes"][kernel]
+            row["probe_launches"] = (row["launches"] if "arm" in row
+                                     else paths["probes"][kernel])
         if not row["launches"]:
             raise AssertionError(f"{kernel} was launched no time on its "
                                  f"paths")

@@ -106,6 +106,15 @@ def matmul_f32(a, b):
     return a.float() @ b.float()
 
 
+def bmm_f32(a, b):
+    """a @ b for 3-D a and b, summed and returned in f32: matmul_f32 for a
+    batch of products (torch.bmm's out_dtype on CUDA)."""
+    if (a.device.type == "cuda" and a.dtype == b.dtype
+            and a.dtype != torch.float32):
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
 def l2_normalize(x, dim: int = -1, eps: float = 0.0):
     """x / ||x||_2 with no epsilon (torch `x / x.norm(dim=-1, keepdim=True)`)."""
     return x / torch.sqrt(x.square().sum(dim=dim, keepdim=True) + eps)

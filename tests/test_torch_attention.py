@@ -408,4 +408,6 @@ def test_wrappers_on_cpu_use_the_plain_version_and_count_nothing(rng):
                                 "attention_bwd": 0, "attention_unsplit_bwd": 0,
                                 "causal_attention": 0, "short_attention": 0,
                                 "short_attention_bwd": 0, "ln_linear": 0,
-                                "mlp_bwd_dx": 0}
+                                "mlp_bwd_dx": 0, "attn_probe_fused": 0,
+                                "tower_bhne": 0, "tower_scratch": 0,
+                                "tower_packed_debug": 0}

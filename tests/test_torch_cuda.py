@@ -13,6 +13,7 @@ from missm_tpu_torch.core.config import tiny_tower
 from missm_tpu_torch.kernels import attention as kernels
 from missm_tpu_torch.kernels import ln_linear as lnl
 from missm_tpu_torch.kernels import mlp_bwd
+from missm_tpu_torch.kernels import probe_attention as pa
 from missm_tpu_torch.models import finetune
 from missm_tpu_torch.models.fusion import FusionConfig
 from missm_tpu_torch.train.step import init_train_state, make_train_step
@@ -662,3 +663,125 @@ def test_fused_tiny_eval_step_on_the_card(cuda, monkeypatch):
                                        ln_linear=4)
     torch.testing.assert_close(got["probs"].cpu(), ref["probs"], atol=1e-4,
                                rtol=1e-4)
+
+
+# The timing probes' kernels (P1-P4): (LAUNCHES name, the wrapper on q, k,
+# v, the plain version, the input shape at N tokens). P3 and P4 take 3
+# heads of 64 in the token-major layout.
+PROBE_ROUTES = {
+    "P1": ("attn_probe_fused", pa.attn_probe_fused, pa.rows_attention_plain,
+           lambda n: (6, n, 64)),
+    "P2": ("tower_bhne", pa.tower_bhne, pa.rows_attention_plain,
+           lambda n: (2, 3, n, 64)),
+    "P3": ("tower_scratch", lambda q, k, v: pa.tower_scratch(q, k, v, 3),
+           lambda q, k, v: pa.rows_attention_plain(q, k, v, layout="tokens",
+                                                   num_heads=3),
+           lambda n: (2, n, 192)),
+    **{f"P4 {mode}": ("tower_packed_debug",
+                      lambda q, k, v, mode=mode:
+                      pa.tower_packed_debug(q, k, v, 3, mode),
+                      lambda q, k, v, mode=mode:
+                      pa.packed_attention_plain(q, k, v, 3, mode),
+                      lambda n: (2, n, 192)) for mode in pa.MODES},
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [257, 77, 5, 320])
+@pytest.mark.parametrize("route", PROBE_ROUTES)
+def test_probe_kernel_matches_plain(cuda, route, n, dtype):
+    """Each probe route and mode against its plain version at the probes'
+    N = 257 and at ragged N (one partial key step, fewer keys than one
+    tile, the batch-row kernel's largest N), one launch each."""
+    name, run, plain, shape = PROBE_ROUTES[route]
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    q, k, v = (torch.randn(*shape(n), generator=gen, device=cuda).to(dtype)
+               for _ in range(3))
+    kernels.reset_launches()
+    with torch.no_grad():
+        got = run(q, k, v)
+        ref = plain(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    atol, rtol = TOL[dtype]
+    if route == "P4 dotsonly":
+        # outputs are sums of s v (tens); a score straddling a bf16
+        # rounding boundary moves one by an ulp of s times v: held within
+        # 1e-4 of the output's scale in f32 and 2^-8 in norm in bf16
+        scale = max(1.0, ref.float().abs().max().item())
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, ref, atol=atol * scale, rtol=0)
+        else:
+            assert _rel(got, ref) <= 2 ** -8
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+    assert kernels.LAUNCHES == _counts(**{name: 1})
+
+
+@pytest.mark.parametrize("rows", pa.ROWS)
+def test_probe_kernel_tiles_agree(cuda, rows):
+    """Every query-row tile P1's probe sweeps gives the plain version's
+    result, at N = 257 and at the largest N the tile takes."""
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    for n in (257, pa.ROWS_MAX_N[rows]):
+        q, k, v = (torch.randn(4, n, 64, generator=gen, device=cuda)
+                   .to(torch.bfloat16) for _ in range(3))
+        got = pa.attn_probe_fused(q, k, v, rows=rows)
+        ref = pa.rows_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        atol, rtol = TOL[torch.bfloat16]
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+
+
+@pytest.mark.parametrize("route", PROBE_ROUTES)
+def test_probe_kernel_raises_on_a_recorded_call(cuda, route):
+    """The probe kernels are forward only: a call autograd records raises
+    (and launches nothing); the same call under no_grad runs."""
+    _, run, _, shape = PROBE_ROUTES[route]
+    q, k, v = (torch.randn(*shape(17), device=cuda, requires_grad=True)
+               for _ in range(3))
+    kernels.reset_launches()
+    with pytest.raises(NotImplementedError):
+        run(q, k, v)
+    assert sum(kernels.LAUNCHES.values()) == 0
+    with torch.no_grad():
+        run(q, k, v)
+
+
+def test_probe_kernels_reject_what_they_do_not_take(cuda):
+    q = torch.zeros(4, 17, 64, device=cuda)
+    with torch.no_grad():
+        with pytest.raises(ValueError):
+            pa.attn_probe_fused(q.half(), q.half(), q.half())         # dtype
+        with pytest.raises(ValueError):
+            pa.attn_probe_fused(q, q.bfloat16(), q)                   # mixed
+        with pytest.raises(ValueError):
+            pa.attn_probe_fused(q, q.cpu(), q)                        # device
+        with pytest.raises(ValueError):
+            pa.attn_probe_fused(q, q[:2], q)                          # shape
+        with pytest.raises(ValueError):
+            pa.attn_probe_fused(q[..., :32].contiguous(),
+                                q[..., :32].contiguous(),
+                                q[..., :32].contiguous())             # hd
+        t = q.transpose(0, 1).contiguous().transpose(0, 1)
+        with pytest.raises(ValueError):
+            pa.attn_probe_fused(t, q, q)                              # strides
+        with pytest.raises(ValueError):
+            pa.attn_probe_fused(q.bfloat16(), q.bfloat16(), q.bfloat16(),
+                                rows=48)                              # tile
+        with pytest.raises(ValueError):
+            pa.tower_bhne(q, q, q)                                    # 3-D
+        x = torch.zeros(2, 17, 128, device=cuda)
+        with pytest.raises(ValueError):
+            pa.tower_scratch(x, x, x, 4)                              # hd 32
+        with pytest.raises(ValueError):
+            pa.tower_packed_debug(x, x, x, 2, "nodots")               # mode
+        long = torch.zeros(1, pa.SCRATCH_MAX_N + 1, 128, device=cuda)
+        with pytest.raises(ValueError):
+            pa.tower_scratch(long, long, long, 2)                     # N
+        longer = torch.zeros(1, pa.ROWS_MAX_N[64] + 1, 64, device=cuda)
+        with pytest.raises(ValueError):
+            pa.attn_probe_fused(longer, longer, longer)               # N
