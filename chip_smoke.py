@@ -158,7 +158,9 @@ def no_tf32():
          torch.backends.cudnn.allow_tf32) = saved
 
 
-def median_ms(fn, reps=7, iters=20) -> float:
+def spread_ms(fn, reps=7, iters=20) -> tuple:
+    """(min, median, max) ms a call over `reps` repeats of `iters` calls
+    between CUDA events, after 3 warm-up calls."""
     for _ in range(3):
         fn()
     times = []
@@ -171,7 +173,55 @@ def median_ms(fn, reps=7, iters=20) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
+    return min(times), statistics.median(times), max(times)
+
+
+def median_ms(fn, reps=7, iters=20) -> float:
+    return spread_ms(fn, reps, iters)[1]
+
+
+def device_profile(fn, calls=5) -> list:
+    """[(kernel name, device ms a call)] of fn, the longest first: one
+    untraced call, then `calls` traced by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA" and e.device_time_total > 0]
+    return [(e.key, e.device_time_total / 1e3 / calls)
+            for e in sorted(events, key=lambda e: -e.device_time_total)]
+
+
+def yardstick(row, kernel, library, label):
+    """Time the library call (`library_ms` its median, the spread beside
+    it); read the device time by kernel of the kernel's and the library's
+    call from the profiler; print the row: kernel, plain and library
+    times, the kernel/library ratio and the share of the bound."""
+    lo, med, hi = spread_ms(library)
+    row["library_ms"] = med
+    row["library_spread_ms"] = [lo, med, hi]
+    row["device_ms"] = {k: t for k, t in device_profile(kernel)}
+    row["library_device_ms"] = {k[:80]: t for k, t in device_profile(library)}
+    row["vs_library"] = row["ms"] / med
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    lib_kernel = next(iter(row["library_device_ms"]))
+    print(f"kernel {row['name']} [{row['shape']}]: bf16 kernel "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, {label} "
+          f"{med:.4f} ms (min {lo:.4f}, max {hi:.4f}; {lib_kernel[:60]}), "
+          f"kernel/library {row['vs_library']:.3f}, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+          f"{100 * row['bound_share']:.1f} % of it", flush=True)
+    print(f"  device ms a call: kernel "
+          f"{sum(row['device_ms'].values()):.4f} "
+          f"{[(k[:48], round(t, 4)) for k, t in row['device_ms'].items()]}; "
+          f"{label} {sum(row['library_device_ms'].values()):.4f} "
+          f"{[(k[:48], round(t, 4)) for k, t in row['library_device_ms'].items()]}",
+          flush=True)
 
 
 def text_batch(rng, batch, vary_length):
@@ -323,7 +373,11 @@ def kernel_phase(dev, rng):
             return torch.nn.functional.scaled_dot_product_attention(
                 heads_first(q), heads_first(k), heads_first(v),
                 attn_mask=mask4)
-        row["library_ms"] = median_ms(lambda: library(*next(cyc)))
+        if s["name"] != "short_attention":
+            # what the bf16 kernel's tiles compute per (batch, head)
+            p = K.plan(n, hd, causal=s["kbias"] is not None)
+            row["scores_per_head"] = p.scores
+            row["exponentials_per_head"] = p.exponentials
 
         # the least time: each input read once and the output written once,
         # against the score and P.V products this run's data needs (causal:
@@ -335,14 +389,9 @@ def kernel_phase(dev, rng):
             valid = (s["kbias"][:, 0, :] == 0).double()          # [B, N]
             pairs = heads * valid.cumsum(-1).sum().item()
         flops = 4 * pairs * hd
-        t_bytes = io_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / BF16_FLOP_PER_S * 1e3
-        row["bound_ms"] = max(t_bytes, t_ops)
-        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"kernel {s['name']} [{row['shape']}]: bf16 kernel "
-              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
-              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']})", flush=True)
+        row["bound_ms"], row["bound_by"] = bound(io_bytes, flops)
+        yardstick(row, lambda: s["run"](*next(cyc)),
+                  lambda: library(*next(cyc)), "sdpa")
         del sets, cyc
         rows.append(row)
     by_name = {row["name"]: row for row in rows}
@@ -806,19 +855,17 @@ def backward_row(dev, gen, s, fwd_row):
         o, leaves, g = next(graphs)
         return torch.autograd.grad(o, leaves, g, retain_graph=True)
 
-    row["library_ms"] = median_ms(sdpa_backward)
-
     # S recomputed, dV, dP, dQ, dK: 5 products of 2 N^2 hd per (batch, head)
     # (N = T, the pairs within each instance, for the block-diagonal one)
     flops = 10 * b * heads * n * n * hd
-    t_bytes = io_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
-    row["bound_ms"] = max(t_bytes, t_ops)
-    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    print(f"kernel {s['name']} [{row['shape']}]: bf16 kernel "
-          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa backward "
-          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']})", flush=True)
+    row["bound_ms"], row["bound_by"] = bound(io_bytes, flops)
+    if s["name"] != "short_attention_bwd":
+        # what the bf16 kernels' tiles compute per (batch, head): the dQ
+        # launch and the dK/dV launch
+        row["scores_per_head"] = {k: K.plan(n, hd, k).scores
+                                  for k in ("dq", "dkdv")}
+    yardstick(row, lambda: s["kernel"](*next(cyc)), sdpa_backward,
+              "sdpa backward")
     del sets, cyc, graphs
     return row
 

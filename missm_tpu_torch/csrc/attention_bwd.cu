@@ -1,11 +1,12 @@
 // Softmax self-attention backward for Hopper (sm_90a), plain C interface.
 //
-// Replaces the Pallas TPU kernel fused_attention_cls_bwd
-// (_attn_bwd_kernel_packed_cls, missm_tpu/kernels/flash_attention.py): the
-// gradient of the bias-free attention of the ViT towers (K1's forward in
-// attention.cu), q [B, 257, 16*64]. The TPU kernel takes K/V split into a CLS
-// row and 256 main keys, and packs head pairs, only to fill its 128-wide
-// lanes; here K/V come whole and each block works on one head.
+// Replaces the Pallas TPU kernels fused_attention_cls_bwd
+// (_attn_bwd_kernel_packed_cls, K3) and fused_attention_bwd unmasked (K4,
+// through fused_attention_ad) of missm_tpu/kernels/flash_attention.py: the
+// gradient of the bias-free attention of attention.cu, q [B, 257, 16*64] (the
+// ViT towers) and [B, 593, 16*64] (the audio tower). The TPU kernel takes K/V
+// split into a CLS row and 256 main keys, and packs head pairs, only to fill
+// its 128-wide lanes; here K/V come whole and each block works on one head.
 //
 // Math, with P = softmax(q k^T * scale) per (batch, head), scale = hd^-0.5:
 //   dV = P^T dO,  dP = dO V^T,  dS = P (dP - D),  D = rowsum(dP P),
@@ -13,186 +14,83 @@
 // D is computed as rowsum(dO O) from the forward's output O, the same sum
 // up to O's rounding to the input type (exact in f32). P is recomputed in f32
 // as exp(s * scale - lse) from the per-row log-sum-exp that the forward
-// wrote. Rounding points are the TPU kernel's: P is rounded to the input
-// type only as the operand of dV, dS is computed in f32 and rounded to the
-// input type before the dQ and dK products, all products accumulate in f32,
-// the scale is applied to the f32 accumulator and each output is cast once.
+// wrote (bf16: exp2 with log2(e) folded into the scale and the lse). Rounding
+// points are the TPU kernel's: P is rounded to the input type only as the
+// operand of dV, dS is computed in f32 and rounded to the input type before
+// the dQ and dK products, all products accumulate in f32, the scale is
+// applied to the f32 accumulator and each output is cast once.
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are [B, N, H*hd] (no head transposes);
 // lse and D are f32 [B, H, N].
 //
-// What bounds it on this card: at the main path's shape (B=16, N=257, H=16,
-// hd=64) the function moves ~68 MB (q, k, v, o, dO read, dq, dk, dv written)
-// for ~10.8 GFLOP of useful products, ~160 FLOP/byte, below the H100's ~295
-// bf16 FLOP/byte: memory-bound. The design keeps the [N, N] scores on chip
-// and is deterministic (no atomics), at the price of recomputing S and dP:
-//   1. delta:  D = rowsum(dO O), one thread per (batch, row, head).
-//   2. dkdv:   one block per (64-key tile, head, batch) walks the query
-//              tiles: S^T, P^T, dV += P^T dO, dP^T, dS^T, dK += dS^T Q.
-//   3. dq:     one block per (64-query tile, head, batch) walks the key
-//              tiles: S, P, dP, dS, dQ += dS K.
-// bf16 products run on the tensor cores through mma.sync m16n8k16 with f32
-// accumulators. Every product's operands come from row-major tiles: an A
-// operand from registers (fragments of K/V or Q/dO rows, or the f32
-// accumulators of S^T/dS^T repacked), a B operand either read as row pairs
-// (B[d][row] = X[row][d]) or gathered as column pairs (B[row][d] =
-// X[row][d]), so no transposed copy is ever made. f32 inputs take a
-// CUDA-core path (4 threads per row) that keeps full f32 precision. No wgmma,
-// TMA or cp.async pipelining yet.
+// What bounds it on this card: at K3's shape (B=16, N=257, H=16, hd=64) the
+// function moves 59 MB (q, k, v, dO read, dq, dk, dv written; 0.018 ms at
+// 3.35 TB/s) for 5 products of 2 N^2 hd a head (10.8 GFLOP, 0.011 ms at 989
+// TFLOP/s); per pair of 64 x 64 tiles a block also takes 4096 exponentials
+// and the f32 work of P and dS, as long as the tiles' products at the tensor
+// cores' peak. The bf16 design is two launches, each a warpgroup (wgmma's M
+// of 64) per 64-row tile, wgmma products and a TMA ring of kStages streamed
+// tile pairs (hopper.cuh):
+//   1. dq:   per (64-query tile, head, batch): D = rowsum(dO O) for its rows
+//            (written for launch 2), then over the key tiles S = Q K^T,
+//            dP = dO V^T (both wgmma from shared memory), P, dS, and
+//            dQ += dS K (dS from registers, K MN-major); K and V by TMA.
+//   2. dkdv: per (64-key tile, head, batch): over the query tiles of BQ rows
+//            S^T = K Q^T, dP^T = V dO^T, P^T, dS^T, dV += P^T dO and
+//            dK += dS^T Q (the register operands from the accumulators, Q and
+//            dO MN-major); Q and dO by TMA, each tile's lse and D read a tile
+//            ahead and staged in shared memory.
+// dQ takes its own pass, (a): it recomputes S and dP, 7 products where the
+// function needs 5, and the backward stays deterministic. Folding dQ into
+// launch 2, (b), takes f32 atomics into a [B, N, H*hd] scratch, a pass to
+// zero it and one to convert it: the dQ pass costs 40 us of K3's 89 and 62
+// of K4's 148 on one H100 (chip_smoke.py's device time, PERF.md section 6),
+// while the SDPA backward that PyTorch runs spends 23 us of its 91 and 27
+// of its 127 on its fill, D and conversion passes alone, before its main
+// kernel. (b) is not built. Every
+// ragged edge is cut as in attention.cu: the last key (launch 1) or query
+// (launch 2) tile is as narrow as its rows (rounded up to 8), the tiles with
+// a ragged tail run after every full tile, and warps without a live row skip
+// the exponentials. f32 inputs take a CUDA-core path (4 threads per row)
+// that keeps full f32 precision: the card's f32 reference in the checks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kTile = 64;      // rows of a bf16 block: 4 warps x 16 rows
+using namespace hopper;
+
+constexpr int kThreads = 128;  // 4 warps: one warpgroup
+constexpr int kTile = 64;      // rows of a bf16 block: wgmma's M
+constexpr int kStages = 2;     // streamed tiles in flight
+constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
-// helpers (as in attention.cu)
+// f32 D = rowsum(dO O), [B, H, N] (the bf16 dQ kernel computes its own rows')
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats -> packed bf16x2, the lower column in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t join_bf16(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// Rows [row0, row0 + ROWS) of one head's [N, HD] slice (row pitch d) into
-// shared memory with pitch LD; rows past n are zero.
-template <int HD, int LD, int ROWS>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               int row0, int n, int d) {
-  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < ROWS * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * d + col);
-    *reinterpret_cast<uint4*>(dst + r * LD + col) = val;
-  }
-}
-
-// A fragments (16 rows x HD, k-steps of 16) of rows [r, r + 16) of a
-// shared-memory tile with pitch LD; lane (g, t) holds rows r + g, r + g + 8.
-template <int HD, int LD>
-__device__ __forceinline__ void load_a_frags(uint32_t f[HD / 16][4],
-                                             const __nv_bfloat16* tile, int r,
-                                             int g, int t) {
-  const __nv_bfloat16* r0 = tile + (r + g) * LD + 2 * t;
-  const __nv_bfloat16* r1 = r0 + 8 * LD;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    f[kk][0] = ld_pair(r0 + kk * 16);
-    f[kk][1] = ld_pair(r1 + kk * 16);
-    f[kk][2] = ld_pair(r0 + kk * 16 + 8);
-    f[kk][3] = ld_pair(r1 + kk * 16 + 8);
-  }
-}
-
-// acc[j] (16 x 8, 8-row tile j of a ROWS-row tile X) += A . X^T over HD:
-// B[d][row] = X[row][d], read as row pairs.
-template <int HD, int LD, int NT>
-__device__ __forceinline__ void mma_rows(float acc[NT][4],
-                                         const uint32_t a[HD / 16][4],
-                                         const __nv_bfloat16* tile, int g,
-                                         int t) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    const __nv_bfloat16* xr = tile + (j * 8 + g) * LD + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      mma_bf16(acc[j], a[kk], ld_pair(xr + kk * 16), ld_pair(xr + kk * 16 + 8));
-  }
-}
-
-// out[j] (16 x 8, columns 8j.. of HD) += W . X, W given as the f32
-// accumulators w[2 * ROWS / 16][4] of a 16 x ROWS product (rounded to bf16
-// here), X a ROWS x HD shared-memory tile: B[row][d] = X[row][d], gathered
-// as column pairs.
-template <int HD, int LD, int ROWS>
-__device__ __forceinline__ void mma_cols(float out[HD / 8][4],
-                                         const float w[ROWS / 8][4],
-                                         const __nv_bfloat16* tile, int g,
-                                         int t) {
-#pragma unroll
-  for (int kk = 0; kk < ROWS / 16; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(w[2 * kk][0], w[2 * kk][1]);
-    a[1] = pack_bf16(w[2 * kk][2], w[2 * kk][3]);
-    a[2] = pack_bf16(w[2 * kk + 1][0], w[2 * kk + 1][1]);
-    a[3] = pack_bf16(w[2 * kk + 1][2], w[2 * kk + 1][3]);
-    const __nv_bfloat16* xr = tile + (kk * 16 + 2 * t) * LD + g;
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      const __nv_bfloat16* xc = xr + j * 8;
-      const uint32_t b0 = join_bf16(xc[0], xc[LD]);
-      const uint32_t b1 = join_bf16(xc[8 * LD], xc[9 * LD]);
-      mma_bf16(out[j], a, b0, b1);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// 1. D = rowsum(dO O), f32 [B, H, N]
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float dot_chunk(uint4 a, uint4 b) {
-  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
-  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 fx = __bfloat1622float2(x[i]);
-    const float2 fy = __bfloat1622float2(y[i]);
-    s = fmaf(fx.x, fy.x, s);
-    s = fmaf(fx.y, fy.y, s);
-  }
-  return s;
-}
-
-__device__ __forceinline__ float dot_chunk(float4 a, float4 b) {
-  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, a.w * b.w)));
-}
 
 // One thread per (batch, row, head) = r; its hd values of o and g start at
-// r * hd (the [B, N, H, hd] layout). VEC: uint4 (8 bf16) or float4.
-template <int HD, typename VEC, int PER>
+// r * hd (the [B, N, H, hd] layout).
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-attention_bwd_delta(const VEC* __restrict__ o, const VEC* __restrict__ g,
-                    float* __restrict__ delta, int rows, int n, int h) {
+attention_bwd_delta_f32(const float4* __restrict__ o,
+                        const float4* __restrict__ g,
+                        float* __restrict__ delta, int rows, int n, int h) {
   const int r = blockIdx.x * kThreads + threadIdx.x;
   if (r >= rows) return;
-  constexpr int kVecs = HD / PER;
-  const VEC* orow = o + (size_t)r * kVecs;
-  const VEC* grow = g + (size_t)r * kVecs;
+  const float4* orow = o + (size_t)r * (HD / 4);
+  const float4* grow = g + (size_t)r * (HD / 4);
   float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < kVecs; ++i) s += dot_chunk(orow[i], grow[i]);
+  for (int i = 0; i < HD / 4; ++i) {
+    const float4 a = orow[i], b = grow[i];
+    s += fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, a.w * b.w)));
+  }
   const int head = r % h;
   const int row = (r / h) % n;
   const int b = r / (h * n);
@@ -200,207 +98,423 @@ attention_bwd_delta(const VEC* __restrict__ o, const VEC* __restrict__ g,
 }
 
 // ---------------------------------------------------------------------------
-// 2./3. bf16: tensor cores
+// bf16: wgmma, TMA ring
 // ---------------------------------------------------------------------------
 
-// dK, dV for one (64-key tile, head, batch). Each warp owns 16 keys and
-// keeps their K and V rows as A fragments; BQ queries per step.
-template <int HD, int BQ>
+// Query rows per step of the dK/dV walk: the register budget of dK, dV, S^T
+// and dP^T (kernels/attention.py::plan mirrors it).
+template <int HD>
+__host__ __device__ constexpr int dkdv_rows() {
+  return HD <= 64 ? 64 : 32;
+}
+// Shared memory of each bf16 kernel: the resident pair of 64-row tiles,
+// kStages pairs of streamed tiles, (dkdv) lse and D for two steps, the
+// barriers, and 1024 bytes to align the tiles.
+template <int HD>
+constexpr int dq_smem_bytes() {
+  return 1024 + (2 + 2 * kStages) * kTile * HD * 2 + 8 * (1 + kStages);
+}
+template <int HD>
+constexpr int dkdv_smem_bytes() {
+  return 1024 + 2 * kTile * HD * 2 + 2 * kStages * dkdv_rows<HD>() * HD * 2 +
+         2 * 2 * dkdv_rows<HD>() * 4 + 8 * (1 + kStages);
+}
+
+// Block x -> (tile, head, batch): the tiles with 64 live rows of every
+// (head, batch), tile fastest, then the ragged tail tile of every one.
+__device__ __forceinline__ void tile_of_block(int n, int h, int nb, int& tile,
+                                              int& head, int& b) {
+  const int full = n / kTile;
+  int bh;
+  if ((int)blockIdx.x < full * h * nb) {
+    tile = blockIdx.x % full;
+    bh = blockIdx.x / full;
+  } else {
+    tile = full;
+    bh = blockIdx.x - full * h * nb;
+  }
+  head = bh % h;
+  b = bh / h;
+}
+
+// One key tile of NK keys for the dQ walk (k0 its first; LAST: the last
+// tile, NK = N - k0 rounded up to 8, whose keys past N get P = 0): S = Q K^T
+// and dP = dO V^T, P = exp(S scale - lse), dS = P (dP - D), dQ += dS K.
+template <int HD, int NK, bool LAST>
+__device__ __forceinline__ void dq_tile(float* dq, uint32_t qs, uint32_t gs,
+                                        uint32_t ks, uint32_t vs, int k0,
+                                        int n, bool live, const float lse2[2],
+                                        const float del[2], float scale_log2) {
+  using T = Tiles<HD>;
+  const int t = threadIdx.x & 3;
+  float p[NK / 2], ds[NK / 2];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_ss<NK>(p, T::kmajor(qs, kTile, kk), T::kmajor(ks, kTile, kk), kk);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_ss<NK>(ds, T::kmajor(gs, kTile, kk), T::kmajor(vs, kTile, kk), kk);
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs<NK / 2>(p);
+  fence_regs<NK / 2>(ds);
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + 2 * t + (e & 1);
+        float pe = ex2(fmaf(p[4 * j + e], scale_log2, -lse2[e >> 1]));
+        if (LAST && key >= n) pe = 0.f;
+        ds[4 * j + e] = pe * (ds[4 * j + e] - del[e >> 1]);
+      }
+  } else {
+#pragma unroll
+    for (int i = 0; i < NK / 2; ++i) ds[i] = 0.f;
+  }
+  // dQ += dS K (dS rounded to bf16 as the operand)
+  constexpr int kSteps = (NK + 15) / 16;
+  uint32_t a[kSteps][4];
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) acc_to_a<NK>(ds, kk, a[kk]);
+  fence_regs<kSteps>(a);
+  fence_regs<HD / 2>(dq);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk)
+#pragma unroll
+    for (int c = 0; c < T::kChunks; ++c)
+      wgmma_rs<T::kCols>(dq + c * T::kCols / 2, a[kk],
+                         T::mnmajor(ks, kTile, kk, c), 1);
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs<HD / 2>(dq);
+}
+
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-attention_bwd_dkdv_bf16(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ go,
+attention_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tg,
+                      const __nv_bfloat16* __restrict__ o,
+                      const __nv_bfloat16* __restrict__ go,
+                      const float* __restrict__ lse, float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dq, int n, int h, int nb,
+                      float scale, float scale_log2) {
+  using T = Tiles<HD>;
+  constexpr int kBytes = kTile * HD * 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_smem(smem_raw);
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(smem + (2 + 2 * kStages) * kBytes);
+  uint64_t* qbar = bars;
+  uint64_t* full = bars + 1;
+
+  int tile, head, b;
+  tile_of_block(n, h, nb, tile, head, b);
+  const int q0 = tile * kTile;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r0 = q0 + warp * 16 + g;  // this thread's rows r0 and r0 + 8
+  const bool live = q0 + warp * 16 < n;
+  const int kfull = n / kTile;
+  const int ntiles = kfull + (n % kTile ? 1 : 0);
+  const int tail = ((n % kTile) + 7) / 8 * 8;
+
+  auto stage = [&](int j) { return smem + (2 + 2 * (j % kStages)) * kBytes; };
+  auto issue = [&](int j) {
+    uint64_t* bar = full + j % kStages;
+    mbar_expect(bar, 2 * kBytes);
+    T::load(stage(j), kTile, &tk, bar, head, j * kTile, b);
+    T::load(stage(j) + kBytes, kTile, &tv, bar, head, j * kTile, b);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + kStages; ++i) mbar_init(bars + i, 1);
+    mbar_fence_init();
+    mbar_expect(qbar, 2 * kBytes);
+    T::load(smem, kTile, &tq, qbar, head, q0, b);
+    T::load(smem + kBytes, kTile, &tg, qbar, head, q0, b);
+    for (int j = 0; j < min(kStages, ntiles); ++j) issue(j);
+  }
+  __syncthreads();
+
+  // D = rowsum(dO O) for rows r0, r0 + 8 (the quad splits each row's HD/2
+  // column pairs), written for the dK/dV launch; lse in log2 units. Rows
+  // past n: Q and dO are zero there, and with lse = D = 0 so is dS.
+  const int d = h * HD;
+  const size_t base = (size_t)b * n * d + (size_t)head * HD;
+  const size_t stat = ((size_t)b * h + head) * n;
+  float lse2[2], del[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    float acc = 0.f;
+    if (row < n) {
+      const __nv_bfloat162* orow =
+          reinterpret_cast<const __nv_bfloat162*>(o + base + (size_t)row * d);
+      const __nv_bfloat162* grow =
+          reinterpret_cast<const __nv_bfloat162*>(go + base + (size_t)row * d);
+#pragma unroll
+      for (int c = t; c < HD / 2; c += 4) {
+        const float2 x = __bfloat1622float2(orow[c]);
+        const float2 y = __bfloat1622float2(grow[c]);
+        acc = fmaf(x.x, y.x, acc);
+        acc = fmaf(x.y, y.y, acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    del[i] = acc;
+    lse2[i] = row < n ? lse[stat + row] * kLog2e : 0.f;
+    if (row < n && t == 0) delta[stat + row] = acc;
+  }
+
+  float dqa[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dqa[i] = 0.f;
+  mbar_wait(qbar, 0);
+  const uint32_t qs = smem_u32(smem);
+  const uint32_t gs = qs + kBytes;
+  for (int j = 0; j < ntiles; ++j) {
+    mbar_wait(full + j % kStages, (j / kStages) & 1);
+    const uint32_t ks = smem_u32(stage(j));
+    const uint32_t vs = ks + kBytes;
+    const int k0 = j * kTile;
+    if (j < kfull) {
+      dq_tile<HD, 64, false>(dqa, qs, gs, ks, vs, k0, n, live, lse2, del,
+                             scale_log2);
+    } else {
+      switch (tail) {
+#define MISSM_TAIL(NK)                                                 \
+  case NK:                                                             \
+    dq_tile<HD, NK, true>(dqa, qs, gs, ks, vs, k0, n, live, lse2, del, \
+                          scale_log2);                                 \
+    break;
+        MISSM_TAIL(8) MISSM_TAIL(16) MISSM_TAIL(24) MISSM_TAIL(32)
+        MISSM_TAIL(40) MISSM_TAIL(48) MISSM_TAIL(56) MISSM_TAIL(64)
+#undef MISSM_TAIL
+      }
+    }
+    __syncthreads();  // every warp is done with stage j
+    if (threadIdx.x == 0 && j + kStages < ntiles) issue(j + kStages);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    if (row >= n) continue;
+    __nv_bfloat16* drow = dq + base + (size_t)row * d;
+#pragma unroll
+    for (int c = 0; c < T::kChunks; ++c)
+#pragma unroll
+      for (int j = 0; j < T::kCols / 8; ++j) {
+        const float* x = dqa + c * T::kCols / 2 + 4 * j + 2 * i;
+        *reinterpret_cast<uint32_t*>(drow + c * T::kCols + 8 * j + 2 * t) =
+            pack_bf16(x[0] * scale, x[1] * scale);
+      }
+  }
+}
+
+// One query tile of NQ queries for the dK/dV walk (Q and dO tiles of BQ
+// rows): S^T = K Q^T and dP^T = V dO^T, P^T = exp(S^T scale - lse[query]),
+// dS^T = P^T (dP^T - D[query]), dV += P^T dO, dK += dS^T Q; lse2s and dels
+// hold the tile's log2-unit lse (+inf past n, so that P = 0 there) and D.
+template <int HD, int BQ, int NQ>
+__device__ __forceinline__ void dkdv_tile(float* dk, float* dv, uint32_t ks,
+                                          uint32_t vs, uint32_t qs, uint32_t gs,
+                                          const float* lse2s, const float* dels,
+                                          bool live, float scale_log2) {
+  using T = Tiles<HD>;
+  const int t = threadIdx.x & 3;
+  float p[NQ / 2], ds[NQ / 2];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_ss<NQ>(p, T::kmajor(ks, kTile, kk), T::kmajor(qs, BQ, kk), kk);
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_ss<NQ>(ds, T::kmajor(vs, kTile, kk), T::kmajor(gs, BQ, kk), kk);
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs<NQ / 2>(p);
+  fence_regs<NQ / 2>(ds);
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < NQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1);
+        p[4 * j + e] = ex2(fmaf(p[4 * j + e], scale_log2, -lse2s[col]));
+        ds[4 * j + e] = p[4 * j + e] * (ds[4 * j + e] - dels[col]);
+      }
+  } else {
+#pragma unroll
+    for (int i = 0; i < NQ / 2; ++i) p[i] = ds[i] = 0.f;
+  }
+  // dV += P^T dO, dK += dS^T Q (each rounded to bf16 as the operand)
+  constexpr int kSteps = (NQ + 15) / 16;
+  uint32_t a[kSteps][4], c4[kSteps][4];
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    acc_to_a<NQ>(p, kk, a[kk]);
+    acc_to_a<NQ>(ds, kk, c4[kk]);
+  }
+  fence_regs<kSteps>(a);
+  fence_regs<kSteps>(c4);
+  fence_regs<HD / 2>(dv);
+  fence_regs<HD / 2>(dk);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk)
+#pragma unroll
+    for (int c = 0; c < T::kChunks; ++c) {
+      wgmma_rs<T::kCols>(dv + c * T::kCols / 2, a[kk],
+                         T::mnmajor(gs, BQ, kk, c), 1);
+      wgmma_rs<T::kCols>(dk + c * T::kCols / 2, c4[kk],
+                         T::mnmajor(qs, BQ, kk, c), 1);
+    }
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs<HD / 2>(dv);
+  fence_regs<HD / 2>(dk);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+attention_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tg,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         __nv_bfloat16* __restrict__ dk,
-                        __nv_bfloat16* __restrict__ dv, int n, int h,
-                        float scale) {
-  constexpr int LD = HD + 8;  // conflict-free fragment reads (attention.cu)
-  constexpr int kSteps = HD / 16;
-  constexpr int kQTiles = BQ / 8;  // 8-query tiles of S^T
-  constexpr int kDTiles = HD / 8;  // 8-column tiles of dK, dV
-  __shared__ __align__(16) __nv_bfloat16 xs[kTile * LD];  // K, then Q tiles
-  __shared__ __align__(16) __nv_bfloat16 ys[kTile * LD];  // V, then dO tiles
-  __shared__ float lses[BQ];
-  __shared__ float dels[BQ];
+                        __nv_bfloat16* __restrict__ dv, int n, int h, int nb,
+                        float scale, float scale_log2) {
+  using T = Tiles<HD>;
+  constexpr int BQ = dkdv_rows<HD>();
+  constexpr int kBytes = kTile * HD * 2;  // a resident K or V tile
+  constexpr int kQBytes = BQ * HD * 2;    // a streamed Q or dO tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_smem(smem_raw);
+  float* stats =
+      reinterpret_cast<float*>(smem + 2 * kBytes + 2 * kStages * kQBytes);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stats + 2 * 2 * BQ);
+  uint64_t* kbar = bars;
+  uint64_t* full = bars + 1;
 
-  const int d = h * HD;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t base = (size_t)b * n * d + (size_t)head * HD;
-  const size_t stat = ((size_t)b * h + head) * n;
+  int tile, head, b;
+  tile_of_block(n, h, nb, tile, head, b);
+  const int k0 = tile * kTile;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
   const int t = lane & 3;
-  const int k0 = blockIdx.x * kTile;
-  const int ki0 = k0 + warp * 16 + g;  // this thread's two key rows
-  const int ki1 = ki0 + 8;
+  const int r0 = k0 + warp * 16 + (lane >> 2);  // this thread's keys r0, r0 + 8
+  const bool live = k0 + warp * 16 < n;
+  const int qfull = n / BQ;
+  const int ntiles = qfull + (n % BQ ? 1 : 0);
+  const int tail = ((n % BQ) + 7) / 8 * 8;
+  const size_t stat = ((size_t)b * h + head) * n;
 
-  load_tile_bf16<HD, LD, kTile>(xs, k + base, k0, n, d);
-  load_tile_bf16<HD, LD, kTile>(ys, v + base, k0, n, d);
-  __syncthreads();
-  uint32_t kf[kSteps][4], vf[kSteps][4];
-  load_a_frags<HD, LD>(kf, xs, warp * 16, g, t);
-  load_a_frags<HD, LD>(vf, ys, warp * 16, g, t);
-
-  float dka[kDTiles][4], dva[kDTiles][4];
-#pragma unroll
-  for (int j = 0; j < kDTiles; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
-
-  for (int q0 = 0; q0 < n; q0 += BQ) {
-    __syncthreads();  // everyone is done with the previous tile (or K/V)
-    load_tile_bf16<HD, LD, BQ>(xs, q + base, q0, n, d);
-    load_tile_bf16<HD, LD, BQ>(ys, go + base, q0, n, d);
+  auto stage = [&](int j) {
+    return smem + 2 * kBytes + 2 * (j % kStages) * kQBytes;
+  };
+  auto issue = [&](int j) {
+    uint64_t* bar = full + j % kStages;
+    mbar_expect(bar, 2 * kQBytes);
+    T::load(stage(j), BQ, &tq, bar, head, j * BQ, b);
+    T::load(stage(j) + kQBytes, BQ, &tg, bar, head, j * BQ, b);
+  };
+  // lse (log2 units; +inf past n) and D of query tile j, read by threads
+  // below BQ: fetched a tile ahead, stored into stats buffer j & 1 before
+  // the barrier that precedes tile j
+  float lse_next = INFINITY, del_next = 0.f;
+  auto fetch_stats = [&](int j) {
+    const int q = j * BQ + threadIdx.x;
+    lse_next = INFINITY;
+    del_next = 0.f;
+    if (threadIdx.x < BQ && j < ntiles && q < n) {
+      lse_next = lse[stat + q] * kLog2e;
+      del_next = delta[stat + q];
+    }
+  };
+  auto stage_stats = [&](int j) {
     if (threadIdx.x < BQ) {
-      const int qi = q0 + threadIdx.x;
-      lses[threadIdx.x] = qi < n ? lse[stat + qi] : INFINITY;
-      dels[threadIdx.x] = qi < n ? delta[stat + qi] : 0.f;
+      float* buf = stats + (j & 1) * 2 * BQ;
+      buf[threadIdx.x] = lse_next;
+      buf[BQ + threadIdx.x] = del_next;
     }
-    __syncthreads();
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + kStages; ++i) mbar_init(bars + i, 1);
+    mbar_fence_init();
+    mbar_expect(kbar, 2 * kBytes);
+    T::load(smem, kTile, &tk, kbar, head, k0, b);
+    T::load(smem + kBytes, kTile, &tv, kbar, head, k0, b);
+    for (int j = 0; j < min(kStages, ntiles); ++j) issue(j);
+  }
+  fetch_stats(0);
+  stage_stats(0);
+  __syncthreads();
 
-    // S^T = K Q^T, then P^T = exp(S^T scale - lse[query]) in f32; keys and
-    // queries past n get P = 0 (zero-filled rows would give exp(-lse)).
-    float p[kQTiles][4];
-    mma_rows<HD, LD, kQTiles>(p, kf, xs, g, t);
+  float dka[HD / 2], dva[HD / 2];
 #pragma unroll
-    for (int j = 0; j < kQTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ql = j * 8 + 2 * t + (e & 1);
-        const int key = e < 2 ? ki0 : ki1;
-        const float pe = expf(p[j][e] * scale - lses[ql]);
-        p[j][e] = (key < n && q0 + ql < n) ? pe : 0.f;
+  for (int i = 0; i < HD / 2; ++i) dka[i] = dva[i] = 0.f;
+  mbar_wait(kbar, 0);
+  const uint32_t ks = smem_u32(smem);
+  const uint32_t vs = ks + kBytes;
+  for (int j = 0; j < ntiles; ++j) {
+    mbar_wait(full + j % kStages, (j / kStages) & 1);
+    const uint32_t qs = smem_u32(stage(j));
+    const uint32_t gs = qs + kQBytes;
+    const float* buf = stats + (j & 1) * 2 * BQ;
+    fetch_stats(j + 1);  // lands while tile j is computed
+    if (j < qfull) {
+      dkdv_tile<HD, BQ, BQ>(dka, dva, ks, vs, qs, gs, buf, buf + BQ, live,
+                            scale_log2);
+    } else {
+      switch (tail) {
+#define MISSM_TAIL(NQ)                                                      \
+  case NQ:                                                                  \
+    if (NQ <= BQ)                                                           \
+      dkdv_tile<HD, BQ, (NQ <= BQ ? NQ : 8)>(dka, dva, ks, vs, qs, gs, buf, \
+                                             buf + BQ, live, scale_log2);   \
+    break;
+        MISSM_TAIL(8) MISSM_TAIL(16) MISSM_TAIL(24) MISSM_TAIL(32)
+        MISSM_TAIL(40) MISSM_TAIL(48) MISSM_TAIL(56) MISSM_TAIL(64)
+#undef MISSM_TAIL
       }
-    // dV += P^T dO (P^T rounded to bf16 as the operand)
-    mma_cols<HD, LD, BQ>(dva, p, ys, g, t);
-    // dP^T = V dO^T; dS^T = P^T (dP^T - D[query]) in f32
-    float ds[kQTiles][4];
-    mma_rows<HD, LD, kQTiles>(ds, vf, ys, g, t);
-#pragma unroll
-    for (int j = 0; j < kQTiles; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ds[j][e] = p[j][e] * (ds[j][e] - dels[j * 8 + 2 * t + (e & 1)]);
-    // dK += dS^T Q (dS^T rounded to bf16 as the operand)
-    mma_cols<HD, LD, BQ>(dka, ds, xs, g, t);
-  }
-
-#pragma unroll
-  for (int j = 0; j < kDTiles; ++j) {
-    const int col = j * 8 + 2 * t;
-    if (ki0 < n) {
-      const size_t off = base + (size_t)ki0 * d + col;
-      *reinterpret_cast<uint32_t*>(dk + off) =
-          pack_bf16(dka[j][0] * scale, dka[j][1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + off) = pack_bf16(dva[j][0], dva[j][1]);
     }
-    if (ki1 < n) {
-      const size_t off = base + (size_t)ki1 * d + col;
-      *reinterpret_cast<uint32_t*>(dk + off) =
-          pack_bf16(dka[j][2] * scale, dka[j][3] * scale);
-      *reinterpret_cast<uint32_t*>(dv + off) = pack_bf16(dva[j][2], dva[j][3]);
-    }
+    stage_stats(j + 1);
+    __syncthreads();  // every warp is done with stage j and stats j & 1
+    if (threadIdx.x == 0 && j + kStages < ntiles) issue(j + kStages);
   }
-}
-
-// dQ for one (64-query tile, head, batch). Each warp owns 16 queries and
-// keeps their Q and dO rows as A fragments; 64 keys per step.
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      const __nv_bfloat16* __restrict__ go,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      __nv_bfloat16* __restrict__ dq, int n, int h,
-                      float scale) {
-  constexpr int LD = HD + 8;
-  constexpr int kSteps = HD / 16;
-  constexpr int kKTiles = kTile / 8;  // 8-key tiles of S
-  constexpr int kDTiles = HD / 8;
-  __shared__ __align__(16) __nv_bfloat16 xs[kTile * LD];  // Q, then K tiles
-  __shared__ __align__(16) __nv_bfloat16 ys[kTile * LD];  // dO, then V tiles
 
   const int d = h * HD;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
   const size_t base = (size_t)b * n * d + (size_t)head * HD;
-  const size_t stat = ((size_t)b * h + head) * n;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int q0 = blockIdx.x * kTile;
-  const int qi0 = q0 + warp * 16 + g;  // this thread's two query rows
-  const int qi1 = qi0 + 8;
-
-  load_tile_bf16<HD, LD, kTile>(xs, q + base, q0, n, d);
-  load_tile_bf16<HD, LD, kTile>(ys, go + base, q0, n, d);
-  __syncthreads();
-  uint32_t qf[kSteps][4], gf[kSteps][4];
-  load_a_frags<HD, LD>(qf, xs, warp * 16, g, t);
-  load_a_frags<HD, LD>(gf, ys, warp * 16, g, t);
-  // rows past n: Q and dO are zero, so with lse = D = 0 their dS is 0
-  const float lse0 = qi0 < n ? lse[stat + qi0] : 0.f;
-  const float lse1 = qi1 < n ? lse[stat + qi1] : 0.f;
-  const float del0 = qi0 < n ? delta[stat + qi0] : 0.f;
-  const float del1 = qi1 < n ? delta[stat + qi1] : 0.f;
-
-  float dqa[kDTiles][4];
 #pragma unroll
-  for (int j = 0; j < kDTiles; ++j)
-    dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.f;
-
-  for (int k0 = 0; k0 < n; k0 += kTile) {
-    __syncthreads();
-    load_tile_bf16<HD, LD, kTile>(xs, k + base, k0, n, d);
-    load_tile_bf16<HD, LD, kTile>(ys, v + base, k0, n, d);
-    __syncthreads();
-
-    // S = Q K^T, P = exp(S scale - lse) in f32, 0 for keys past n
-    float p[kKTiles][4];
-    mma_rows<HD, LD, kKTiles>(p, qf, xs, g, t);
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    if (row >= n) continue;
 #pragma unroll
-    for (int j = 0; j < kKTiles; ++j)
+    for (int c = 0; c < T::kChunks; ++c)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + 2 * t + (e & 1);
-        const float pe = expf(p[j][e] * scale - (e < 2 ? lse0 : lse1));
-        p[j][e] = key < n ? pe : 0.f;
+      for (int j = 0; j < T::kCols / 8; ++j) {
+        const int idx = c * T::kCols / 2 + 4 * j + 2 * i;
+        const size_t off = base + (size_t)row * d + c * T::kCols + 8 * j + 2 * t;
+        *reinterpret_cast<uint32_t*>(dk + off) =
+            pack_bf16(dka[idx] * scale, dka[idx + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + off) =
+            pack_bf16(dva[idx], dva[idx + 1]);
       }
-    // dP = dO V^T; dS = P (dP - D[query]) in f32
-    float ds[kKTiles][4];
-    mma_rows<HD, LD, kKTiles>(ds, gf, ys, g, t);
-#pragma unroll
-    for (int j = 0; j < kKTiles; ++j) {
-      ds[j][0] = p[j][0] * (ds[j][0] - del0);
-      ds[j][1] = p[j][1] * (ds[j][1] - del0);
-      ds[j][2] = p[j][2] * (ds[j][2] - del1);
-      ds[j][3] = p[j][3] * (ds[j][3] - del1);
-    }
-    // dQ += dS K (dS rounded to bf16 as the operand)
-    mma_cols<HD, LD, kTile>(dqa, ds, xs, g, t);
-  }
-
-#pragma unroll
-  for (int j = 0; j < kDTiles; ++j) {
-    const int col = j * 8 + 2 * t;
-    if (qi0 < n)
-      *reinterpret_cast<uint32_t*>(dq + base + (size_t)qi0 * d + col) =
-          pack_bf16(dqa[j][0] * scale, dqa[j][1] * scale);
-    if (qi1 < n)
-      *reinterpret_cast<uint32_t*>(dq + base + (size_t)qi1 * d + col) =
-          pack_bf16(dqa[j][2] * scale, dqa[j][3] * scale);
   }
 }
 
 // ---------------------------------------------------------------------------
-// 2./3. f32: CUDA cores, 4 threads per row, full f32 products
+// f32: CUDA cores, 4 threads per row, full f32 products
 // ---------------------------------------------------------------------------
 
 constexpr int kF32Rows = 32;  // rows per block (128 threads)
@@ -562,41 +676,63 @@ attention_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int HD>
-void launch(const void* q, const void* k, const void* v, const void* o,
-            const void* g, const float* lse, float* delta, void* dq, void* dk,
-            void* dv, int b, int n, int h, int is_bf16, float scale,
-            cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, const void* o,
+                const void* g, const float* lse, float* delta, void* dq,
+                void* dk, void* dv, int b, int n, int h, float scale,
+                cudaStream_t stream) {
+  using Tb = __nv_bfloat16;
+  constexpr int kCols = Tiles<HD>::kCols;
+  constexpr int BQ = dkdv_rows<HD>();
+  const int d = h * HD;
+  CUtensorMap tq, tk, tv, tg, tq2, tg2;
+  int rc = encode_rows(&tq, q, b, n, d, kTile, kCols);
+  if (!rc) rc = encode_rows(&tk, k, b, n, d, kTile, kCols);
+  if (!rc) rc = encode_rows(&tv, v, b, n, d, kTile, kCols);
+  if (!rc) rc = encode_rows(&tg, g, b, n, d, kTile, kCols);
+  if (!rc) rc = encode_rows(&tq2, q, b, n, d, BQ, kCols);
+  if (!rc) rc = encode_rows(&tg2, g, b, n, d, BQ, kCols);
+  auto dq_kernel = attention_bwd_dq_bf16<HD>;
+  auto dkdv_kernel = attention_bwd_dkdv_bf16<HD>;
+  static unsigned long long dq_attr = 0, dkdv_attr = 0;
+  if (!rc) rc = allow_smem(dq_kernel, dq_smem_bytes<HD>(), dq_attr);
+  if (!rc) rc = allow_smem(dkdv_kernel, dkdv_smem_bytes<HD>(), dkdv_attr);
+  if (rc) return rc;
+  const int blocks = b * h * ((n + kTile - 1) / kTile);
+  const float scale_log2 = scale * kLog2e;
+  dq_kernel<<<blocks, kThreads, dq_smem_bytes<HD>(), stream>>>(
+      tq, tk, tv, tg, static_cast<const Tb*>(o), static_cast<const Tb*>(g),
+      lse, delta, static_cast<Tb*>(dq), n, h, b, scale, scale_log2);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc) return rc;
+  dkdv_kernel<<<blocks, kThreads, dkdv_smem_bytes<HD>(), stream>>>(
+      tq2, tk, tv, tg2, lse, delta, static_cast<Tb*>(dk), static_cast<Tb*>(dv),
+      n, h, b, scale, scale_log2);
+  return 0;
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* g, const float* lse, float* delta, void* dq, void* dk,
+           void* dv, int b, int n, int h, int is_bf16, float scale,
+           cudaStream_t stream) {
+  if (is_bf16)
+    return launch_bf16<HD>(q, k, v, o, g, lse, delta, dq, dk, dv, b, n, h,
+                           scale, stream);
   const int rows = b * n * h;
   const dim3 delta_grid((rows + kThreads - 1) / kThreads);
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    attention_bwd_delta<HD, uint4, 8><<<delta_grid, kThreads, 0, stream>>>(
-        static_cast<const uint4*>(o), static_cast<const uint4*>(g), delta,
-        rows, n, h);
-    constexpr int BQ = HD <= 64 ? 64 : 32;  // register budget of the dK/dV warp
-    const dim3 grid((n + kTile - 1) / kTile, h, b);
-    attention_bwd_dkdv_bf16<HD, BQ><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,
-        static_cast<T*>(dk), static_cast<T*>(dv), n, h, scale);
-    attention_bwd_dq_bf16<HD><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(g), lse, delta,
-        static_cast<T*>(dq), n, h, scale);
-  } else {
-    attention_bwd_delta<HD, float4, 4><<<delta_grid, kThreads, 0, stream>>>(
-        static_cast<const float4*>(o), static_cast<const float4*>(g), delta,
-        rows, n, h);
-    const dim3 grid((n + kF32Rows - 1) / kF32Rows, h, b);
-    attention_bwd_dkdv_f32<HD><<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(g), lse, delta,
-        static_cast<float*>(dk), static_cast<float*>(dv), n, h, scale);
-    attention_bwd_dq_f32<HD><<<grid, kThreads, 0, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(g), lse, delta,
-        static_cast<float*>(dq), n, h, scale);
-  }
+  attention_bwd_delta_f32<HD><<<delta_grid, kThreads, 0, stream>>>(
+      static_cast<const float4*>(o), static_cast<const float4*>(g), delta,
+      rows, n, h);
+  const dim3 grid((n + kF32Rows - 1) / kF32Rows, h, b);
+  attention_bwd_dkdv_f32<HD><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(g), lse, delta,
+      static_cast<float*>(dk), static_cast<float*>(dv), n, h, scale);
+  attention_bwd_dq_f32<HD><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(g), lse, delta,
+      static_cast<float*>(dq), n, h, scale);
+  return 0;
 }
 
 }  // namespace
@@ -604,9 +740,11 @@ void launch(const void* q, const void* k, const void* v, const void* o,
 // q, k, v, o (the forward's output), g (dO), dq, dk, dv: [b, n, h *
 // head_dim] contiguous, 16-byte aligned, all bf16 (is_bf16 = 1) or all f32.
 // lse: [b, h, n] f32 from the forward; delta: [b, h, n] f32 scratch.
-// head_dim: a multiple of 16 up to 128. Launches three kernels on `stream`
-// and returns cudaGetLastError() (cudaErrorInvalidValue for a head_dim it
-// was not built for).
+// head_dim: a multiple of 16 up to 128. Launches two kernels (bf16) or three
+// (f32) on `stream` and returns the first error: of the tensor maps, the
+// shared-memory attributes or the first launch (bf16), else
+// cudaGetLastError() (cudaErrorInvalidValue for a head_dim it was not built
+// for).
 extern "C" int missm_attention_backward(const void* q, const void* k,
                                         const void* v, const void* o,
                                         const void* g, const void* lse,
@@ -617,10 +755,12 @@ extern "C" int missm_attention_backward(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
+  int rc;
   switch (head_dim) {
-#define MISSM_HD(HD)                                                        \
-  case HD:                                                                  \
-    launch<HD>(q, k, v, o, g, l, dl, dq, dk, dv, b, n, h, is_bf16, scale, s); \
+#define MISSM_HD(HD)                                                      \
+  case HD:                                                                \
+    rc = launch<HD>(q, k, v, o, g, l, dl, dq, dk, dv, b, n, h, is_bf16,   \
+                    scale, s);                                            \
     break;
     MISSM_HD(16) MISSM_HD(32) MISSM_HD(48) MISSM_HD(64)
     MISSM_HD(80) MISSM_HD(96) MISSM_HD(112) MISSM_HD(128)
@@ -628,5 +768,21 @@ extern "C" int missm_attention_backward(const void* q, const void* k,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  return rc ? rc : static_cast<int>(cudaGetLastError());
+}
+
+// The dynamic shared memory of the bf16 dQ (which = 0) or dK/dV (which = 1)
+// kernel at head_dim (0 for a head_dim it was not built for): what
+// kernels/attention.py::plan says.
+extern "C" int missm_attention_backward_smem(int head_dim, int which) {
+  switch (head_dim) {
+#define MISSM_HD(HD) \
+  case HD:           \
+    return which ? dkdv_smem_bytes<HD>() : dq_smem_bytes<HD>();
+    MISSM_HD(16) MISSM_HD(32) MISSM_HD(48) MISSM_HD(64)
+    MISSM_HD(80) MISSM_HD(96) MISSM_HD(112) MISSM_HD(128)
+#undef MISSM_HD
+    default:
+      return 0;
+  }
 }

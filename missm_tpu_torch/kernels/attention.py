@@ -28,6 +28,10 @@ The wrappers, by the TPU kernel each takes the place of
   kernel of csrc/short_attention_bwd.cu (`LAUNCHES["short_attention_bwd"]`),
   which takes the place of K4, `fused_attention_bwd(block_diag=T)`.
 
+`plan` says what a bf16 launch of csrc/attention.cu or csrc/attention_bwd.cu
+computes per (batch, head): its row and column tiles, scores, exponentials
+and shared memory, as the C launchers compute them.
+
 q, k, v and the output are [B, N, H*hd] ([M, T, H*hd] for short_attention).
 Scores, softmax and accumulation are f32; the output has the input's type
 (bf16 or f32). On a CPU tensor a wrapper computes the plain version under
@@ -37,6 +41,8 @@ launch adds one to its count in `LAUNCHES`.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -45,6 +51,10 @@ from .launches import LAUNCHES, reset_launches  # noqa: F401 (re-exported)
 
 _HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)  # instantiated in every .cu
 SHORT_MAX_T = 32  # the longest instance csrc/short_attention.cu takes
+# The bf16 kernels of csrc/attention.cu and csrc/attention_bwd.cu (`plan`):
+ROWS = 64              # rows of a block: one warpgroup, wgmma's M
+STAGES = 2             # streamed tiles in flight (the TMA ring)
+SMEM_LIMIT = 232_448   # the most dynamic shared memory a block may have
 
 
 # ---------------------------------------------------------------------------
@@ -171,19 +181,30 @@ def attention_route(n: int, num_heads: int, head_dim: int) -> str:
 def attention(q, k, v, num_heads: int):
     """softmax(q k^T hd^-0.5) v per (batch, head); the forward kernel, the
     backward kernel for its gradient. Only a recorded call writes the
-    log-sum-exp that the backward kernel needs."""
+    log-sum-exp that the backward kernel needs; a call autograd does not
+    record launches the forward alone, without a Function around it."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, num_heads)
-    return _Attention.apply(q, k, v, num_heads, _recorded(q, k, v))
+    if _recorded(q, k, v):
+        return _Attention.apply(q, k, v, num_heads, True)
+    out, _ = _launch(q, k, v, None, num_heads, causal=False)
+    LAUNCHES[attention_route(q.shape[1], num_heads,
+                             q.shape[2] // num_heads)] += 1
+    return out
 
 
 def causal_attention(q, k, v, kbias, num_heads: int):
     """Causal attention with an optional additive key bias [B, 1, N] f32
     (finfo.min at padded keys), added before the causal mask; K2 mode a
-    forward, plain PyTorch backward."""
+    forward, plain PyTorch backward (a call autograd does not record
+    launches the forward alone)."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, num_heads, causal=True, kbias=kbias)
-    return _CausalAttention.apply(q, k, v, kbias, num_heads)
+    if _recorded(q, k, v, kbias):
+        return _CausalAttention.apply(q, k, v, kbias, num_heads)
+    out, _ = _launch(q, k, v, kbias, num_heads, causal=True)
+    LAUNCHES["causal_attention"] += 1
+    return out
 
 
 def short_attention(q, k, v, num_heads: int):
@@ -260,6 +281,92 @@ class _ShortAttention(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
+# Plans: what a bf16 launch computes (the C launchers compute the same)
+# ---------------------------------------------------------------------------
+
+
+def dkdv_rows(head_dim: int) -> int:
+    """Query rows per step of the dK/dV kernel: the register budget of dK,
+    dV, S^T and dP^T (attention_bwd.cu::dkdv_rows)."""
+    return 64 if head_dim <= 64 else 32
+
+
+def _tiles(n: int, width: int):
+    """(first, live) per tile of `width` rows over n rows: the full tiles,
+    then the ragged one."""
+    return tuple((i, min(width, n - i)) for i in range(0, n, width))
+
+
+def _narrow(live: int) -> int:
+    """The width a tile of `live` columns is computed at: wgmma's N steps
+    of 8."""
+    return -(-live // 8) * 8
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One bf16 kernel's work for a (batch, head).
+
+    kernel: "forward", "dq" or "dkdv". rows: (first, live) of each block's
+    row tile (queries; keys for dkdv), in launch order: the full tiles, then
+    the ragged one, which every (batch, head) runs after all full tiles.
+    cols: per row tile, (first, width) of each column tile it visits (keys;
+    queries for dkdv), the last one narrowed to `width` = its live columns
+    rounded up to 8; causal row tiles stop at their diagonal. smem_bytes:
+    the block's dynamic shared memory, which the C launcher asks for."""
+    kernel: str
+    rows: tuple
+    cols: tuple
+    smem_bytes: int
+
+    @property
+    def blocks(self) -> int:
+        """Blocks per (batch, head)."""
+        return len(self.rows)
+
+    @property
+    def scores(self) -> int:
+        """Score entries computed per (batch, head): every block's 64 rows
+        times the width of each column tile it visits."""
+        return sum(ROWS * sum(w for _, w in c) for c in self.cols)
+
+    @property
+    def exponentials(self) -> int:
+        """Scores per (batch, head) whose exponential is taken: the warps
+        (16 rows each) with a live row compute the softmax, the others skip
+        it."""
+        return sum(-(-live // 16) * 16 * sum(w for _, w in c)
+                   for (_, live), c in zip(self.rows, self.cols))
+
+
+@functools.lru_cache(maxsize=None)
+def plan(n: int, head_dim: int, kernel: str = "forward", *,
+         causal: bool = False) -> Plan:
+    """What the bf16 `kernel` ("forward", "dq", "dkdv") computes at N = n
+    tokens and `head_dim`: csrc/attention.cu::attention_bf16 (causal: its
+    key tiles stop at each query tile's last row) and the two launches of
+    csrc/attention_bwd.cu."""
+    if head_dim not in _HEAD_DIMS:
+        raise ValueError(f"head dim {head_dim} is not one of {_HEAD_DIMS}")
+    tile_bytes = ROWS * head_dim * 2
+    rows = _tiles(n, ROWS)
+    if kernel == "dkdv":
+        bq = dkdv_rows(head_dim)
+        cols = tuple(tuple((i, _narrow(w)) for i, w in _tiles(n, bq))
+                     for _ in rows)
+        smem = (1024 + 2 * tile_bytes + 2 * STAGES * bq * head_dim * 2
+                + 2 * 2 * bq * 4 + 8 * (1 + STAGES))
+        return Plan(kernel, rows, cols, smem)
+    if kernel not in ("forward", "dq"):
+        raise ValueError(f"no kernel {kernel!r}")
+    cols = tuple(tuple((i, _narrow(w)) for i, w in _tiles(
+        min(n, q0 + ROWS) if causal else n, ROWS)) for q0, _ in rows)
+    resident = 1 if kernel == "forward" else 2       # Q; Q and dO
+    smem = 1024 + (resident + 2 * STAGES) * tile_bytes + 8 * (1 + STAGES)
+    return Plan(kernel, rows, cols, smem)
+
+
+# ---------------------------------------------------------------------------
 # Launches
 # ---------------------------------------------------------------------------
 
@@ -277,13 +384,14 @@ def _check(num_heads, q, **tensors):
     D = q.shape[2]
     if D % num_heads or D // num_heads not in _HEAD_DIMS:
         raise ValueError(f"head dim {D}/{num_heads} is not one of {_HEAD_DIMS}")
-    for name, t in dict(q=q, **tensors).items():
-        if t.shape != q.shape or t.dtype != q.dtype:
-            raise ValueError(f"{name} must be {q.dtype} {tuple(q.shape)} like "
+    shape, dtype, device = q.shape, q.dtype, q.device
+    for name, t in (("q", q), *tensors.items()):
+        if t.shape != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} {tuple(shape)} like "
                              f"q; got {t.dtype} {tuple(t.shape)}")
-        if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
+        if t.device != device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous, 16-byte aligned and "
-                             f"on {q.device}")
+                             f"on {device}")
 
 
 def _launch(q, k, v, kbias, num_heads, *, causal, want_lse=False):

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` compiles on its own into a shared library with a plain
 C interface (`build/missm_tpu_torch/lib<name>_<digest>.so` at the repository
-root), which `ctypes` loads. The digest covers the source and the flags, so a
-changed source builds anew and an unchanged one is reused. Nothing is built
+root), which `ctypes` loads. The digest covers the source, the shared headers
+(`csrc/*.cuh`) and the flags, so a changed source builds anew and an unchanged
+one is reused. Nothing is built
 when a module is imported: the first kernel launch builds what it needs, and
 `build_all` builds every source at once, one nvcc process per source.
 """
@@ -22,7 +23,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "missm_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-ldl")
 
 
 def _nvcc() -> str:
@@ -36,8 +37,9 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    parts = [(CSRC_DIR / f"{name}.cu").read_bytes()]
+    parts += [p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

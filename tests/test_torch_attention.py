@@ -411,3 +411,65 @@ def test_wrappers_on_cpu_use_the_plain_version_and_count_nothing(rng):
                                 "mlp_bwd_dx": 0, "attn_probe_fused": 0,
                                 "tower_bhne": 0, "tower_scratch": 0,
                                 "tower_packed_debug": 0}
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernels' plans (kernels/attention.py::plan, mirrored by the C
+# launchers of csrc/attention.cu and csrc/attention_bwd.cu)
+# ---------------------------------------------------------------------------
+
+EDGE_N = (1, 8, 15, 16, 17, 63, 64, 65, 77, 127, 128, 129, 257, 593)
+PLANS = [("forward", False), ("forward", True), ("dq", False),
+         ("dkdv", False)]
+
+
+@pytest.mark.parametrize("kernel", ["forward", "dq", "dkdv"])
+@pytest.mark.parametrize("head_dim", kernels._HEAD_DIMS)
+def test_every_plan_fits_the_shared_memory(head_dim, kernel):
+    p = kernels.plan(593, head_dim, kernel)
+    assert 0 < p.smem_bytes <= kernels.SMEM_LIMIT == 232_448
+
+
+@pytest.mark.parametrize("kernel,causal", PLANS)
+@pytest.mark.parametrize("n", EDGE_N)
+def test_plan_tiles_cover_n_once(n, kernel, causal):
+    """Every row of the (batch, head) is in one block's tile, and every key
+    (query, for dkdv) a row tile sees (causal: up to its last row) is in
+    one of its column tiles, which are as wide as their live columns
+    rounded up to 8 and no wider than a full tile."""
+    p = kernels.plan(n, 64, kernel, causal=causal)
+    width = kernels.dkdv_rows(64) if kernel == "dkdv" else kernels.ROWS
+    rows = [r for first, live in p.rows for r in range(first, first + live)]
+    assert rows == list(range(n))
+    assert all(first % kernels.ROWS == 0 and 0 < live <= kernels.ROWS
+               for first, live in p.rows)
+    assert [live for _, live in p.rows][:-1] == [kernels.ROWS] * (p.blocks - 1)
+    for (first, _), cols in zip(p.rows, p.cols):
+        end = min(n, first + kernels.ROWS) if causal else n
+        seen = []
+        for c0, w in cols:
+            live = min(width, end - c0)
+            assert c0 % width == 0 and w % 8 == 0 and live <= w < live + 8
+            seen += range(c0, c0 + live)
+        assert seen == list(range(end))
+
+
+@pytest.mark.parametrize("n,kernel,causal,scores,exponentials", [
+    (257, "forward", False, 84_480, 71_808),
+    (593, "forward", False, 384_000, 364_800),
+    (77, "forward", True, 9_216, 5_376),
+    (257, "dq", False, 84_480, 71_808),
+    (593, "dq", False, 384_000, 364_800),
+    (257, "dkdv", False, 84_480, 71_808),
+    (593, "dkdv", False, 384_000, 364_800),
+])
+def test_plan_products_are_the_ones_perf_md_reports(n, kernel, causal,
+                                                    scores, exponentials):
+    """Scores computed per (batch, head) (every block's 64 rows by the
+    widths of its column tiles) and exponentials taken (the warps with a
+    live row), against the old grid of whole 64 x 64 tiles: 102,400 at N =
+    257, 409,600 at 593, 16,384 at 77."""
+    p = kernels.plan(n, 64, kernel, causal=causal)
+    assert (p.scores, p.exponentials) == (scores, exponentials)
+    whole = -(-n // 64) * 64
+    assert p.scores < whole * whole

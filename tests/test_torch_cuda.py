@@ -348,6 +348,126 @@ def test_backward_rejects_what_the_kernel_does_not_take(cuda):
         kernels._launch_bwd(q, q, q, q, lse[:, :1], q, 2)       # lse shape
 
 
+# The tile edges of the bf16 kernels (64-row tiles, narrow last tiles in
+# steps of 8) and the main path's N.
+EDGE_N = (1, 8, 15, 16, 17, 63, 64, 65, 77, 127, 128, 129, 257, 593)
+
+
+def _edge_kbias(b, n, mode, device):
+    """causal_pad: keys from n // 2 + i on padded in row i of the batch, as
+    _inputs pads them (key 0 never); causal_key0: every key but key 0
+    padded, so that each query row keeps only key 0."""
+    kb = torch.zeros(b, 1, n, device=device)
+    neg = torch.finfo(torch.float32).min
+    for i in range(b):
+        kb[i, 0, (max(1, n // 2 + i) if mode == "causal_pad" else 1):] = neg
+    return kb
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", EDGE_N)
+@pytest.mark.parametrize("mode", ["attention", "causal", "causal_pad",
+                                  "causal_key0"])
+def test_kernel_edges_match_plain(cuda, dtype, n, mode):
+    """The forward kernel at every tile edge, bias-free, causal, causal
+    with padded keys and causal with every key but key 0 padded."""
+    b, heads = 2, 2
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    q, k, v = (torch.randn(b, n, heads * 64, generator=gen, device=cuda)
+               .to(dtype) for _ in range(3))
+    if mode == "attention":
+        got, _ = kernels._launch(q, k, v, None, heads, causal=False)
+        ref = kernels.attention_plain(q, k, v, heads)
+    else:
+        kb = None if mode == "causal" else _edge_kbias(b, n, mode, cuda)
+        got, _ = kernels._launch(q, k, v, kb, heads, causal=True)
+        ref = kernels.attention_plain(q, k, v, heads, causal=True, kbias=kb)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[dtype]
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", EDGE_N)
+def test_recorded_forward_writes_the_log_sum_exp(cuda, dtype, n):
+    """The log-sum-exp [B, H, N] the recorded forward writes against
+    torch.logsumexp of the plain scores (q scaled in its own type, f32
+    products). f32 sums in another order; bf16 the same."""
+    b, heads, hd = 2, 2, 64
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    q, k, v = (torch.randn(b, n, heads * hd, generator=gen, device=cuda)
+               .to(dtype) for _ in range(3))
+    _, lse = kernels._launch(q, k, v, None, heads, causal=False,
+                             want_lse=True)
+    s = torch.einsum("bqhd,bkhd->bhqk",
+                     (q * hd ** -0.5).reshape(b, n, heads, hd).float(),
+                     k.reshape(b, n, heads, hd).float())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, torch.logsumexp(s, -1), atol=1e-4,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", EDGE_N)
+def test_backward_edges_match_plain(cuda, dtype, n):
+    """The backward kernel at every tile edge, from the forward kernel's
+    output and log-sum-exp: each of dq, dk and dv."""
+    b, heads = 2, 2
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    q, k, v, g = (torch.randn(b, n, heads * 64, generator=gen, device=cuda)
+                  .to(dtype) for _ in range(4))
+    out, lse = kernels._launch(q, k, v, None, heads, causal=False,
+                               want_lse=True)
+    got = kernels._launch_bwd(q, k, v, out, lse, g, heads)
+    ref = kernels.attention_bwd_plain(q, k, v, g, heads)
+    torch.cuda.synchronize()
+    for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+        assert x.dtype == dtype and torch.isfinite(x).all(), name
+        if n == 1 and name != "dv":
+            # one key: P = 1, so dS = P (dP - D) and with it dq and dk are
+            # exactly 0; the kernel's are what is left of dP - D, held
+            # against the scale of dv (= dO) instead of a zero norm
+            assert x.float().norm() <= GRAD_TOL[dtype] * got[2].float().norm()
+        else:
+            assert _rel(x, r) <= GRAD_TOL[dtype], (name, _rel(x, r))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n", [(16, 257), (8, 593)])
+def test_backward_at_the_train_steps_shapes(cuda, dtype, b, n):
+    """K3 at the train step's microbatch [16, 257, 16*64] and K4 unmasked
+    at train3's [8, 593, 16*64]: each of dq, dk and dv."""
+    heads = 16
+    gen = torch.Generator(device=cuda).manual_seed(b + n)
+    q, k, v, g = (torch.randn(b, n, heads * 64, generator=gen, device=cuda)
+                  .to(dtype) for _ in range(4))
+    out, lse = kernels._launch(q, k, v, None, heads, causal=False,
+                               want_lse=True)
+    got = kernels._launch_bwd(q, k, v, out, lse, g, heads)
+    ref = kernels.attention_bwd_plain(q, k, v, g, heads)
+    torch.cuda.synchronize()
+    for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+        assert torch.isfinite(x).all(), name
+        assert _rel(x, r) <= GRAD_TOL[dtype], (name, _rel(x, r))
+
+
+def test_plans_ask_for_the_kernels_shared_memory(cuda):
+    """kernels/attention.py::plan's dynamic shared memory is what the C
+    launchers ask for, at every head dim."""
+    import ctypes
+
+    from missm_tpu_torch.kernels import build
+    fwd = build.function("attention", "missm_attention_forward_smem",
+                         [ctypes.c_int])
+    bwd = build.function("attention_bwd", "missm_attention_backward_smem",
+                         [ctypes.c_int, ctypes.c_int])
+    for hd in kernels._HEAD_DIMS:
+        assert fwd(hd) == kernels.plan(257, hd).smem_bytes, hd
+        assert bwd(hd, 0) == kernels.plan(257, hd, "dq").smem_bytes, hd
+        assert bwd(hd, 1) == kernels.plan(257, hd, "dkdv").smem_bytes, hd
+
+
 def _tiny_train(device, monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
