@@ -208,6 +208,8 @@ def yardstick(row, kernel, library, label):
     row["device_ms"] = {k: t for k, t in device_profile(kernel)}
     row["library_device_ms"] = {k[:80]: t for k, t in device_profile(library)}
     row["vs_library"] = row["ms"] / med
+    row["device_vs_library"] = (sum(row["device_ms"].values())
+                                / sum(row["library_device_ms"].values()))
     row["bound_share"] = row["bound_ms"] / row["ms"]
     lib_kernel = next(iter(row["library_device_ms"]))
     print(f"kernel {row['name']} [{row['shape']}]: bf16 kernel "
@@ -220,8 +222,8 @@ def yardstick(row, kernel, library, label):
           f"{sum(row['device_ms'].values()):.4f} "
           f"{[(k[:48], round(t, 4)) for k, t in row['device_ms'].items()]}; "
           f"{label} {sum(row['library_device_ms'].values()):.4f} "
-          f"{[(k[:48], round(t, 4)) for k, t in row['library_device_ms'].items()]}",
-          flush=True)
+          f"{[(k[:48], round(t, 4)) for k, t in row['library_device_ms'].items()]}"
+          f"; kernel/library {row['device_vs_library']:.3f}", flush=True)
 
 
 def text_batch(rng, batch, vary_length):
@@ -638,9 +640,11 @@ def probe_rows(dev, gen):
     wrappers at the probes' shapes: P1 [1024, 257, 64] head-major, P2 [64,
     16, 257, 64], P3 and each mode of P4 [64, 257, 16*64]; each against its
     plain version in f32 and bf16, timed in bf16 against the plain version
-    and SDPA (none for noexp and dotsonly, which no PyTorch call computes).
-    The bound: q, k and v read and the output written once (134.7 MB)
-    against 4 N^2 hd FLOP per (batch, head) slice (17.3 GFLOP)."""
+    and SDPA through `yardstick` (none for noexp and dotsonly, which no
+    PyTorch call computes: their kernel's device time alone), with
+    kernels/probe_attention.py::plan's tiles. The bound: q, k and v read
+    and the output written once (134.7 MB) against 4 N^2 hd FLOP per
+    (batch, head) slice (17.3 GFLOP)."""
     from missm_tpu_torch.kernels import probe_attention as pa
     from missm_tpu_torch.probes import ablation_probe, attn_probe
 
@@ -662,17 +666,18 @@ def probe_rows(dev, gen):
              replaces="scripts/attn_probe.py:47 (make_fused, pallas_call at "
                       "73)",
              run=pa.attn_probe_fused, plain=pa.rows_attention_plain,
-             library=attn_probe.sdpa),
+             library=attn_probe.sdpa, kernel="rows"),
         dict(name="tower_bhne", shape=(b, heads, n, hd),
              replaces=f"{script}:84 (make_tower_bhne, pallas_call at 112)",
-             run=pa.tower_bhne, plain=pa.rows_attention_plain, library=sdpa),
+             run=pa.tower_bhne, plain=pa.rows_attention_plain, library=sdpa,
+             kernel="rows"),
         dict(name="tower_scratch", shape=tokens,
              replaces=f"{script}:152 (make_tower_scratch, pallas_call at "
                       f"183)",
              run=lambda q, k, v: pa.tower_scratch(q, k, v, heads),
              plain=lambda q, k, v: pa.rows_attention_plain(
                  q, k, v, layout="tokens", num_heads=heads),
-             library=sdpa_tokens),
+             library=sdpa_tokens, kernel="scratch"),
         *[dict(name=f"tower_packed_debug[{mode}]", counter="tower_packed_debug",
                arm=f"packed {mode}", shape=tokens,
                unnormalised=mode == "dotsonly",
@@ -682,7 +687,9 @@ def probe_rows(dev, gen):
                    q, k, v, heads, mode),
                plain=lambda q, k, v, mode=mode: pa.packed_attention_plain(
                    q, k, v, heads, mode),
-               library=sdpa_tokens if mode in ("full", "nostage") else None)
+               library=sdpa_tokens if mode in ("full", "nostage") else None,
+               kernel="nostage" if mode == "nostage" else "rows",
+               mode="full" if mode == "nostage" else mode)
           for mode in pa.MODES],
     ]
     rows = []
@@ -701,19 +708,34 @@ def probe_rows(dev, gen):
                    .to(torch.bfloat16) for _ in range(3))
         row["ms"] = median_ms(lambda: s["run"](q, k, v))
         row["plain_ms"] = median_ms(lambda: s["plain"](q, k, v))
-        row["library_ms"] = (None if s["library"] is None
-                             else median_ms(lambda: s["library"](q, k, v)))
-        if s["library"] is None:
-            row["library"] = "none: no PyTorch call computes this function"
         slices = q.numel() // (n * hd)
         row["bound_ms"], row["bound_by"] = bound(4 * q.numel() * 2,
                                                  4 * slices * n * n * hd)
-        print(f"kernel {s['name']} [{row['shape']}]: bf16 kernel "
-              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, sdpa "
-              + ("none" if row["library_ms"] is None
-                 else f"{row['library_ms']:.4f} ms")
-              + f", bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
-              flush=True)
+        p = pa.plan(n, s["kernel"], slices=slices, mode=s.get("mode", "full"))
+        row["plan"] = {"kernel": p.kernel, "warpgroups": p.warpgroups,
+                       "grid": p.grid, "query_tiles": list(p.rows),
+                       "key_tiles": list(p.cols), "passes": p.passes,
+                       "smem_bytes": p.smem_bytes,
+                       "scores_per_slice": p.scores}
+        print(f"  plan {s['name']}: {p.kernel} kernel, {p.grid} blocks of "
+              f"{p.warpgroups} warpgroup(s), {len(p.rows)} query tiles "
+              f"(last {p.rows[-1]}), key tiles "
+              f"{[w for _, w in p.cols]}, {p.passes} pass(es), "
+              f"{p.smem_bytes} bytes of shared memory", flush=True)
+        if s["library"] is None:
+            row["library_ms"] = None
+            row["library"] = "none: no PyTorch call computes this function"
+            row["device_ms"] = dict(device_profile(lambda: s["run"](q, k, v)))
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            print(f"kernel {s['name']} [{row['shape']}]: bf16 kernel "
+                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+                  f"library none, bound {row['bound_ms']:.4f} ms "
+                  f"({row['bound_by']}), {100 * row['bound_share']:.1f} % of "
+                  f"it; device ms a call "
+                  f"{sum(row['device_ms'].values()):.4f}", flush=True)
+        else:
+            yardstick(row, lambda: s["run"](q, k, v),
+                      lambda: s["library"](q, k, v), "sdpa")
         del q, k, v
         rows.append(row)
     return rows
@@ -1738,8 +1760,9 @@ def main() -> int:
                 for i in range(len(entries) - 1)
                 if any(k in entries[i] for k in (
                     "bf16ILi64E", "bfloat16Li64ELi8E", "ln_linear_bf16",
-                    "mlp_bwd_dx_bf16ILi32ELi32ELi1024E", "rows_bf16ILi4E",
-                    "scratch_bf16"))]
+                    "mlp_bwd_dx_bf16ILi32ELi32ELi1024E",
+                    "rows_bf16ILi1ELi0ELb0E", "scratch_bf16ILi2E",
+                    "nostage_bf16"))]
         print(f"build csrc/{src}.cu: {seconds:.1f} s; the main path's bf16 "
               f"kernels: {main}", flush=True)
         out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),

@@ -8,8 +8,7 @@
 //   P2  ablation_probe.py:84 make_tower_bhne(group): the same on
 //       [B, H, N, hd], which is P1's layout with B*H slices.
 //   P3  ablation_probe.py:152 make_tower_scratch(): the same on
-//       [B, N, H*hd], one program per batch row over all H heads, each
-//       head's slices staged into scratch.
+//       [B, N, H*hd], each head's slices staged into scratch.
 //   P4  ablation_probe.py:210 make_tower_packed_debug(mode): the production
 //       kernel's rounding order (exp(s - m) rounded to the input type
 //       unnormalised, P.V divided by the row sum afterwards) on [B, N, H*hd],
@@ -22,67 +21,546 @@
 // Math: s = (q . k) * hd^-0.5 in f32, then per row m = max(s) and e as the
 // mode says. P1-P3 divide before rounding: p = (e / sum(e)) rounded to the
 // input type; P4 rounds e and divides P.V by den in f32. P.V accumulates in
-// f32; the output has the input type.
+// f32; the output has the input type. The bf16 kernels take exp(s - m) as
+// one exp2 with log2(e) folded into the scale.
 //
 // Layout: q, k, v and out are [B, N, H*hd]; slice (b, head) is rows of
 // pitch H*hd starting at column head*hd. The head-major [G, N, hd] of P1
 // and P2 is the same with H = 1.
 //
-// Design. Every block keeps the full [rows, N] f32 score rows of its query
-// tile in shared memory, so the row max and sum are exact before P.V, as
-// the TPU kernels have them; this is what lets noexp's sum(s - m) exist at
-// all (an online softmax cannot rescale it). bf16 products run on the
-// tensor cores (mma.sync m16n8k16, f32 accumulators; one warp per 16 query
-// rows). The C fragment of Q K^T that a thread holds is exactly the part
-// of P it later needs as an A fragment of P V, so each thread stores its
-// own scores (one float4 per 8-key tile) and reads back no other thread's:
-// no barrier or shuffle across a row beyond the quad that shares it. Per
-// query tile: S = Q K^T key tile by key tile into shared memory while each
-// thread keeps its rows' running max; the quad's max; for P1-P3 a pass
-// over the stored scores for the row sums; then O = P V key tile by key
-// tile, e computed from the stored score as it becomes the A fragment (and,
-// for P4, summed there). f32 inputs take a CUDA-core path (4 threads per
-// query row, the row's scores in shared memory) that keeps full f32
-// precision.
-//   - The whole-row kernel (P1, P2, P4): one block per (query tile, slice).
-//     K and V tiles of 64 keys pass through shared memory between two
-//     barriers (staged), or, for nostage, the mma fragments load straight
-//     from device memory. Query rows per block are a template parameter
-//     (16, 32, 64 or 128), P1's sweep; the scores take rows * N16 * 4
-//     bytes (N16 = N rounded up to 16), 68 KB at 64 rows and N = 257.
-//   - The batch-row kernel (P3): one block per batch row, B blocks, as the
-//     TPU's grid (B,). It loops over the H heads, stages each head's whole
-//     [N, hd] K and V into shared memory, then walks the head's query tiles
-//     of 64 rows. At B = 64 it fills at most 64 of the card's 132 SMs.
-//
 // What bounds it on this card: at the probes' shapes (1024 slices of
 // [257, 64]) the function moves 134.7 MB (q, k, v read once, out written
-// once) and does 17.3 GFLOP: 0.040 ms at 3.35 TB/s against 0.018 ms at 989
-// TFLOP/s, so bytes. The score rows never reach device memory; K and V are
-// re-read once per query tile of their slice, mostly from L2. No wgmma, TMA
-// or cp.async pipelining yet.
+// once: 0.0402 ms at 3.35 TB/s) and does 17.3 GFLOP (0.0175 ms at 989
+// TFLOP/s), so bytes. The score rows never reach device memory.
+//
+// Design of the bf16 kernels (csrc/hopper.cuh: TMA, mbarriers, wgmma).
+// Every query row's max (and, for P1-P3, its sum) is exact before any P,
+// as the TPU kernels have them: that is what lets noexp's sum(s - m) exist
+// at all (an online softmax cannot rescale it). Here it is had by two
+// passes over the keys, not by keeping the row:
+//   - One warpgroup (4 warps, wgmma's M of 64 rows) per 64-query tile. Q
+//     arrives by TMA into a swizzled K-major tile and stays for both
+//     passes.
+//   - The statistics pass: S = Q K^T (wgmma m64nNk16, K K-major in shared
+//     memory) one 64-key tile at a time, the last as narrow as its keys
+//     (N mod 64 rounded up to 8: 8 keys at N = 257). Each thread keeps the
+//     running max of its columns of its two rows and, for P1-P3, the sum of
+//     exp2(s c - m c) rescaled as the max grows (c = scale log2(e), one ex2
+//     a score); the quad that shares a row merges them at the end.
+//     dotsonly (e = s, den = 1) needs no statistics and skips the pass.
+//   - The output pass: S again, P from the accumulators in registers (e as
+//     the mode says, over the sum for P1-P3, rounded to bf16: wgmma's
+//     accumulator layout is the A fragment layout), O += P V with P as the
+//     register A operand and V MN-major in shared memory; a narrow last
+//     tile pads P.V to 16 keys with P = 0. P4 sums den here.
+//   - A warp whose 16 rows all lie past N takes no exponential (its P is 0).
+// The price is S computed twice (4 N^2 hd FLOP a head become 6, still under
+// the byte bound) and, in the whole-row kernel, K read twice from L2. What
+// it buys: no score row in shared memory, so blocks are small and many.
+// The whole-row kernel (P1, P2, P4 full, noexp, dotsonly): grid (query
+// tiles x slices), the ragged query tiles after every full one. The
+// slice's K tiles for the statistics pass and then its (K, V) pairs for
+// the output pass stream through one ring of kStages 64-key tiles whose
+// mbarriers complete on their bytes. Shared memory: 1024 (alignment) +
+// 8 KB Q + 4 x 8 KB ring + 40 of barriers = 42,024 bytes whatever N is, so
+// five blocks an SM by shared memory and N has no limit. ROWS = 128 runs two
+// warpgroups a block sharing the ring (50,216 bytes).
+// The batch-row kernel (P3): what sets it apart from P2 is its staging, a
+// head's whole K and V landing in shared memory once for all of the head's
+// query tiles. One block per (batch, head): TMA brings the head's K and V
+// (rows rounded up to 16, zero past N) in 16-row boxes, and the block's
+// warpgroups walk the head's 64-query tiles against them (warpgroup w takes
+// tiles w, w + WGS, ...), each with two Q buffers so that its next tile
+// lands while this one runs. Two warpgroups: 1024 + 2 x 2 x 8 KB Q +
+// 2 x 2 KB x ceil(N / 16) K and V + 40 of barriers = 103,464 bytes at
+// N = 257, two blocks (16 warps) an SM, up to N = 768; one warpgroup to
+// N = 832. kernels/probe_attention.py::plan mirrors every figure, and
+// missm_probe_attention_smem exports them.
+// Registers: 106 a thread in the whole-row kernel (four blocks an SM, so
+// registers bind before shared memory), 112 in the batch-row kernel (two
+// blocks of two warpgroups an SM).
+// Measured against other designs on one card in one call and dropped:
+// keeping the row instead of the second pass, each thread storing its own
+// float4 of scores per 8-key group (64 x N x 4 bytes a warpgroup, 67,584 at
+// N = 257) and reading back only its own for P.V, one pass over K and one
+// over V: at most two blocks an SM by shared memory, and slower; the same
+// with the next tile's products issued before this tile's scores are kept,
+// slower still; rings of 2, 3 and 6 tiles; a register cap for five blocks
+// an SM (spills) or four; the statistics pass taking two key tiles a
+// commit group, or issuing tile j + 1's products before folding tile j's
+// (more registers, fewer blocks); the ragged query tiles launched first.
+// Each was slower or no faster.
+// nostage (P4): wgmma reads its B operand from shared memory only, so the
+// knock-out of every operand passing through shared memory exists on this
+// card only on mma.sync (m16n8k16, one warp per 16 query rows) with the
+// fragments loaded straight from device memory. It keeps that design; it
+// computes full's function, and its score rows (64 x N rounded up to 16,
+// f32) are the only thing in its shared memory, up to N = 896.
+// f32 inputs take a CUDA-core path (4 threads per query row, the row's
+// scores in shared memory) that keeps full f32 precision: the card's f32
+// reference in the checks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 typedef __nv_bfloat16 bf16;
 
 enum Mode { kFull = 0, kNoExp = 1, kDotsOnly = 2 };
 
-constexpr int kHD = 64;             // the probes' head dim (ViT-L/14)
-constexpr int kLD = kHD + 8;        // shared-memory pitch of a bf16 tile row
-constexpr int kKeys = 64;           // keys per bf16 K/V tile
-constexpr int kSteps = kHD / 16;    // k-steps of Q.K^T
-constexpr int kOTiles = kHD / 8;    // 8-column output tiles
-constexpr int kF32Rows = 32;        // f32: query rows per block (128 threads)
-constexpr int kF32Keys = 32;        // f32: keys per staged K/V tile
-constexpr int kR = kHD / 4;         // f32: dims per thread
-constexpr int kMaxSmem = 232448;    // a block's shared memory on sm_90
+constexpr int kHD = 64;                  // the probes' head dim (ViT-L/14)
+constexpr int kKeys = 64;                // keys per full K/V tile
+constexpr int kQRows = 64;               // query rows per warpgroup
+constexpr int kStages = 4;               // ring tiles in flight
+constexpr int kBox = 16;                 // rows per TMA box of P3's K and V
+constexpr int kTile = kQRows * kHD * 2;  // bytes of a 64-row bf16 tile
+constexpr int kF32Rows = 32;             // f32: query rows per block
+constexpr int kF32Keys = 32;             // f32: keys per staged K/V tile
+constexpr int kR = kHD / 4;              // f32: dims per thread
+constexpr int kMaxSmem = 232448;         // a block's shared memory on sm_90
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kAll = 0xffffffffu;
+
+// Dynamic shared memory of each bf16 kernel (kernels/probe_attention.py::
+// plan computes the same): the whole-row kernel with WGS warpgroups, the
+// batch-row kernel with WGS warpgroups, the nostage kernel.
+int rows_smem(int wgs) {
+  return 1024 + (wgs + kStages) * kTile + 8 * (1 + kStages);
+}
+int scratch_smem(int wgs, int n) {
+  return 1024 + 2 * wgs * kTile +
+         2 * ((n + kBox - 1) / kBox) * kBox * kHD * 2 + 8 * (1 + 2 * wgs);
+}
+int nostage_smem(int n) { return 64 * ((n + 15) & ~15) * 4; }
+
+// e of one score at column col: exp(s - m), s - m or s as MODE says below
+// n, 0 at or past n (the f32 and nostage kernels).
+template <int MODE>
+__device__ __forceinline__ float weight(float s, float m, int col, int n) {
+  if (col >= n) return 0.f;
+  return MODE == kFull ? expf(s - m) : MODE == kNoExp ? s - m : s;
+}
+
+__device__ __forceinline__ void quad_max(float& a) {
+  a = fmaxf(a, __shfl_xor_sync(kAll, a, 1));
+  a = fmaxf(a, __shfl_xor_sync(kAll, a, 2));
+}
+
+__device__ __forceinline__ void quad_sum(float& a) {
+  a += __shfl_xor_sync(kAll, a, 1);
+  a += __shfl_xor_sync(kAll, a, 2);
+}
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma, TMA
+// ---------------------------------------------------------------------------
+
+// This thread's two rows (r, r + 8): the running max of the raw scores of
+// its columns and, for the kernels that divide before rounding, the sum of
+// exp2((s - m) c) over them.
+struct Stats {
+  float m[2], l[2];
+};
+
+// The 128 threads of warpgroup wg meet (named barrier 1 + wg).
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// S = Q K^T for the NK keys of the K tile at ks (Q at qs), waited for.
+template <int NK>
+__device__ __forceinline__ void scores(float* s, uint32_t qs, uint32_t ks) {
+  using T = Tiles<kHD>;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kHD / 16; ++kk)
+    wgmma_ss<NK>(s, T::kmajor(qs, kQRows, kk), T::kmajor(ks, kKeys, kk), kk);
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs<NK / 2>(s);
+}
+
+// The statistics pass over the NK keys from k0 (LAST: the narrow last tile,
+// whose keys at or past n are not keys): a live warp folds the tile's scores
+// into st, the max and (SUM) the sum of exp2(s c - m c), c = scale log2(e).
+template <int NK, bool LAST, bool SUM>
+__device__ __forceinline__ void stats_tile(uint32_t qs, uint32_t ks, int k0,
+                                           int n, bool live, float c,
+                                           Stats& st) {
+  float s[NK / 2];
+  scores<NK>(s, qs, ks);
+  if (!live) return;
+  const int t = threadIdx.x & 3;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (LAST && k0 + 8 * j + 2 * t + (e & 1) >= n) s[4 * j + e] = -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * j + e]);
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float mn = fmaxf(st.m[i], mx[i]);
+    if (SUM) {
+      // while every key of this thread's so far is masked its max is -inf:
+      // take 0 as the reference then, so that no exponent is -inf - -inf
+      const float ref = mn == -INFINITY ? 0.f : mn * c;
+      float l = st.l[i] * ex2(fmaf(st.m[i], c, -ref));
+#pragma unroll
+      for (int j = 0; j < NK / 8; ++j)
+        l += ex2(fmaf(s[4 * j + 2 * i], c, -ref)) +
+             ex2(fmaf(s[4 * j + 2 * i + 1], c, -ref));
+      st.l[i] = l;
+    }
+    st.m[i] = mn;
+  }
+}
+
+// The output pass over the NK keys from k0: S again, then O += P V (the V
+// tile at vs, MN-major) with P = e rounded to bf16. From y = a s + b[row],
+// e = exp2(y) (full) or y (noexp, dotsonly) at keys below n, 0 past them;
+// (DEN) e is added to den; then e is multiplied by f[row]. A warp without a
+// live row multiplies by P = 0; a narrow tile pads P.V to 16 keys with
+// P = 0.
+template <int NK, bool LAST, int MODE, bool DEN>
+__device__ __forceinline__ void out_tile(float* o, uint32_t qs, uint32_t ks,
+                                         uint32_t vs, int k0, int n, bool live,
+                                         float a, const float b[2],
+                                         const float f[2], float den[2]) {
+  constexpr int KS = (NK + 15) / 16;
+  float s[NK / 2];
+  scores<NK>(s, qs, ks);
+  uint32_t p[KS][4];
+  if (live) {
+    const int t = threadIdx.x & 3;
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e >> 1;
+        const float y = fmaf(s[4 * j + e], a, b[row]);
+        float x = MODE == kFull ? ex2(y) : y;
+        if (LAST && k0 + 8 * j + 2 * t + (e & 1) >= n) x = 0.f;
+        if (DEN) den[row] += x;
+        s[4 * j + e] = x * f[row];
+      }
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) acc_to_a<NK>(s, kk, p[kk]);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) p[kk][0] = p[kk][1] = p[kk][2] = p[kk][3] = 0u;
+  }
+  fence_regs<KS>(p);
+  fence_regs<kHD / 2>(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    wgmma_rs<kHD>(o, p[kk], Tiles<kHD>::mnmajor(vs, kKeys, kk, 0), 1);
+  wgmma_commit();
+  wgmma_wait();
+  fence_regs<kHD / 2>(o);
+}
+
+#define MISSM_TAILS(X) X(8) X(16) X(24) X(32) X(40) X(48) X(56) X(64)
+
+// Key tile j of either pass: one of the kfull full tiles, or the narrow
+// last one of `tail` keys (N mod 64 rounded up to 8).
+template <bool SUM>
+__device__ __forceinline__ void stats_at(int j, int kfull, int tail,
+                                         uint32_t qs, uint32_t ks, int n,
+                                         bool live, float c, Stats& st) {
+  const int k0 = j * kKeys;
+  if (j < kfull) {
+    stats_tile<kKeys, false, SUM>(qs, ks, k0, n, live, c, st);
+    return;
+  }
+  switch (tail) {
+#define MISSM_TAIL(NK)                                         \
+  case NK:                                                     \
+    stats_tile<NK, true, SUM>(qs, ks, k0, n, live, c, st);     \
+    break;
+    MISSM_TAILS(MISSM_TAIL)
+#undef MISSM_TAIL
+  }
+}
+
+template <int MODE, bool DEN>
+__device__ __forceinline__ void out_at(int j, int kfull, int tail, float* o,
+                                       uint32_t qs, uint32_t ks, uint32_t vs,
+                                       int n, bool live, float a,
+                                       const float b[2], const float f[2],
+                                       float den[2]) {
+  const int k0 = j * kKeys;
+  if (j < kfull) {
+    out_tile<kKeys, false, MODE, DEN>(o, qs, ks, vs, k0, n, live, a, b, f,
+                                      den);
+    return;
+  }
+  switch (tail) {
+#define MISSM_TAIL(NK)                                                       \
+  case NK:                                                                   \
+    out_tile<NK, true, MODE, DEN>(o, qs, ks, vs, k0, n, live, a, b, f, den); \
+    break;
+    MISSM_TAILS(MISSM_TAIL)
+#undef MISSM_TAIL
+  }
+}
+
+// The row's max (and, SUM, its sum of exp2(s c - m c)) from the four
+// threads of the quad that holds the row.
+template <bool SUM>
+__device__ __forceinline__ void merge_stats(Stats& st, float c) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float m = st.m[i];
+    quad_max(m);
+    if (SUM) {
+      float l = st.l[i] * ex2(fmaf(st.m[i], c, -m * c));
+      quad_sum(l);
+      st.l[i] = l;
+    }
+    st.m[i] = m;
+  }
+}
+
+// What the output pass needs from the row statistics: y = a s + b[row] is
+// the exponent (full) or e itself (noexp, dotsonly), P is e times f[row] (1
+// / the row sum for the kernels that divide before rounding, else 1).
+template <int MODE, bool SUM>
+__device__ __forceinline__ void pv_terms(const Stats& st, float scale, float c,
+                                         float& a, float b[2], float f[2]) {
+  a = MODE == kFull ? c : scale;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    b[i] = MODE == kDotsOnly ? 0.f : -st.m[i] * a;
+    f[i] = SUM ? 1.f / st.l[i] : 1.f;
+  }
+}
+
+// This thread's output rows r0 and r0 + 8 of slice (b, head), divided by
+// den, where the row is below n.
+__device__ __forceinline__ void store_out(bf16* out, const float* o, int r0,
+                                          int n, int h, int head, int b,
+                                          const float den[2]) {
+  const int t = threadIdx.x & 3;
+  const int d = h * kHD;
+  bf16* base = out + (size_t)b * n * d + (size_t)head * kHD;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + 8 * i;
+    if (row >= n) continue;
+    bf16* orow = base + (size_t)row * d;
+#pragma unroll
+    for (int j = 0; j < kHD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
+          pack_bf16(o[4 * j + 2 * i] / den[i], o[4 * j + 2 * i + 1] / den[i]);
+  }
+}
+
+// One warpgroup's 64-query tile, both passes: ktile(j) / vtile(j) wait for
+// key tile j of K / V and return its shared address; done(j) is called
+// after the statistics pass's tile j (i = j) and after the output pass's
+// tile j (i = nkt + j), when the block may reuse what it read.
+template <int MODE, bool AFTER, typename KTile, typename VTile, typename Done>
+__device__ __forceinline__ void query_tile(uint32_t qs, KTile ktile,
+                                           VTile vtile, Done done, bf16* out,
+                                           int qw, int n, int h, int head,
+                                           int b, float scale) {
+  constexpr bool SUM = !AFTER;
+  constexpr bool DEN = AFTER && MODE != kDotsOnly;
+  constexpr bool STATS = MODE != kDotsOnly;  // dotsonly needs no max
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int r0 = qw + warp * 16 + ((threadIdx.x & 31) >> 2);
+  const bool live = qw + warp * 16 < n;
+  const int nkt = (n + kKeys - 1) / kKeys;
+  const int kfull = n / kKeys;
+  const int tail = (n % kKeys + 7) / 8 * 8;
+  const float c = scale * kLog2e;
+  Stats st = {{-INFINITY, -INFINITY}, {0.f, 0.f}};
+  for (int j = 0; STATS && j < nkt; ++j) {
+    stats_at<SUM>(j, kfull, tail, qs, ktile(j), n, live, c, st);
+    done(j);
+  }
+  if (STATS && live) merge_stats<SUM>(st, c);
+  float a, bb[2], f[2];
+  pv_terms<MODE, SUM>(st, scale, c, a, bb, f);
+  float o[kHD / 2];
+#pragma unroll
+  for (int i = 0; i < kHD / 2; ++i) o[i] = 0.f;
+  float den[2] = {0.f, 0.f};
+  for (int j = 0; j < nkt; ++j) {
+    const uint32_t ks = ktile(nkt + j);
+    out_at<MODE, DEN>(j, kfull, tail, o, qs, ks, vtile(j), n, live, a, bb, f,
+                      den);
+    done(nkt + j);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (DEN)
+      quad_sum(den[i]);
+    else
+      den[i] = 1.f;
+  }
+  store_out(out, o, r0, n, h, head, b, den);
+}
+
+// The whole-row kernel (P1, P2, P4 full, noexp, dotsonly). Block x: the
+// query tiles of WGS x 64 rows with every row live of every slice, tile
+// fastest, then the ragged last tile of every slice. The ring carries the
+// statistics pass's K tiles, then the output pass's (K, V) pairs. Shared
+// memory: Q (WGS tiles), the ring, the barriers.
+template <int WGS, int MODE, bool AFTER>
+__global__ void __launch_bounds__(WGS * 128)
+rows_bf16(const __grid_constant__ CUtensorMap tq,
+          const __grid_constant__ CUtensorMap tk,
+          const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
+          int n, int h, int slices, float scale) {
+  using T = Tiles<kHD>;
+  constexpr int BQ = WGS * kQRows;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_smem(smem_raw);
+  uint8_t* ring = smem + WGS * kTile;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(ring + kStages * kTile);
+  uint64_t* full = qbar + 1;  // kStages: ring tile i in stage i % kStages
+
+  const int full_tiles = n / BQ;
+  int tile, slice;
+  if ((int)blockIdx.x < full_tiles * slices) {
+    tile = blockIdx.x % full_tiles;
+    slice = blockIdx.x / full_tiles;
+  } else {
+    tile = full_tiles;
+    slice = blockIdx.x - full_tiles * slices;
+  }
+  const int head = slice % h;
+  const int b = slice / h;
+  const int q0 = tile * BQ;
+  const int wg = threadIdx.x >> 7;
+  const int nkt = (n + kKeys - 1) / kKeys;
+  // the ring: K_0 .. K_{nkt-1} for the statistics pass (none for
+  // dotsonly), then K_0, V_0, K_1, V_1, .. for the output pass
+  const int pairs0 = MODE == kDotsOnly ? 0 : nkt;
+  const int total = pairs0 + 2 * nkt;
+
+  auto stage = [&](int i) { return ring + (i % kStages) * kTile; };
+  auto load = [&](int i) {
+    uint64_t* bar = full + i % kStages;
+    const bool is_v = i >= pairs0 && (i - pairs0) % 2;
+    const int key_tile = i < pairs0 ? i : (i - pairs0) / 2;
+    mbar_expect(bar, kTile);
+    T::load(stage(i), kKeys, is_v ? &tv : &tk, bar, head, key_tile * kKeys, b);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + kStages; ++i) mbar_init(qbar + i, 1);
+    mbar_fence_init();
+    // a warpgroup whose rows all lie past N loads no Q (its warps are dead)
+    const int nq = min(WGS, (n - q0 + kQRows - 1) / kQRows);
+    mbar_expect(qbar, nq * kTile);
+    for (int w = 0; w < nq; ++w)
+      T::load(smem + w * kTile, kQRows, &tq, qbar, head, q0 + w * kQRows, b);
+    for (int i = 0; i < min(kStages, total); ++i) load(i);
+  }
+  __syncthreads();
+
+  // ring index of K tile j (j < nkt: statistics pass, else output pass
+  // tile j - nkt)
+  auto k_index = [&](int j) { return j < nkt ? j : pairs0 + 2 * (j - nkt); };
+  auto wait = [&](int i) {
+    mbar_wait(full + i % kStages, (i / kStages) & 1);
+    return smem_u32(stage(i));
+  };
+  auto release = [&](int i) {
+    if (threadIdx.x == 0 && i + kStages < total) load(i + kStages);
+  };
+  auto done = [&](int j) {
+    __syncthreads();  // every warp is done with the tiles of step j
+    release(k_index(j));
+    if (j >= nkt) release(k_index(j) + 1);
+  };
+  mbar_wait(qbar, 0);
+  query_tile<MODE, AFTER>(
+      smem_u32(smem + wg * kTile), [&](int j) { return wait(k_index(j)); },
+      [&](int j) { return wait(pairs0 + 2 * j + 1); }, done, out,
+      q0 + wg * kQRows, n, h, head, b, scale);
+}
+
+// The batch-row kernel (P3): block x is (batch x / h, head x % h). Shared
+// memory: two Q tiles per warpgroup (its query tile and the next one), the
+// head's K and V (16-row boxes, rows past N zero), the barriers.
+template <int WGS>
+__global__ void __launch_bounds__(WGS * 128)
+scratch_bf16(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
+             int n, int h, float scale) {
+  using T = Tiles<kHD>;
+  constexpr int kBoxBytes = kBox * kHD * 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_smem(smem_raw);
+  const int nb = (n + kBox - 1) / kBox;  // boxes of K, and of V
+  uint8_t* ks = smem + 2 * WGS * kTile;
+  uint8_t* vs = ks + nb * kBoxBytes;
+  uint64_t* kvbar = reinterpret_cast<uint64_t*>(vs + nb * kBoxBytes);
+  uint64_t* qbar = kvbar + 1;  // 2 WGS: Q buffer 2 w + r % 2, round r of w
+
+  const int head = blockIdx.x % h;
+  const int b = blockIdx.x / h;
+  const int wg = threadIdx.x >> 7;
+  const int tid = threadIdx.x & 127;
+  const int nqt = (n + kQRows - 1) / kQRows;
+  const int nkt = (n + kKeys - 1) / kKeys;
+
+  // warpgroup w's query tile of round r is w + r WGS, in buffer 2 w + r % 2
+  auto load_q = [&](int w, int r) {
+    const int buf = 2 * w + r % 2;
+    mbar_expect(qbar + buf, kTile);
+    T::load(smem + buf * kTile, kQRows, &tq, qbar + buf, head,
+            (w + r * WGS) * kQRows, b);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + 2 * WGS; ++i) mbar_init(kvbar + i, 1);
+    mbar_fence_init();
+    mbar_expect(kvbar, 2 * nb * kBoxBytes);
+    for (int i = 0; i < nb; ++i) {
+      T::load(ks + i * kBoxBytes, kBox, &tk, kvbar, head, i * kBox, b);
+      T::load(vs + i * kBoxBytes, kBox, &tv, kvbar, head, i * kBox, b);
+    }
+    for (int w = 0; w < WGS; ++w)
+      for (int r = 0; r < 2; ++r)
+        if (w + r * WGS < nqt) load_q(w, r);
+  }
+  __syncthreads();
+
+  mbar_wait(kvbar, 0);
+  for (int r = 0; wg + r * WGS < nqt; ++r) {
+    const int buf = 2 * wg + r % 2;
+    mbar_wait(qbar + buf, (r / 2) & 1);
+    // after the last product that reads this Q tile, the buffer takes the
+    // tile two rounds on
+    auto done = [&](int j) {
+      if (j != 2 * nkt - 1) return;
+      warpgroup_sync(wg);
+      if (tid == 0 && wg + (r + 2) * WGS < nqt) load_q(wg, r + 2);
+    };
+    query_tile<kFull, false>(
+        smem_u32(smem + buf * kTile),
+        [&](int j) { return smem_u32(ks + (j < nkt ? j : j - nkt) * kTile); },
+        [&](int j) { return smem_u32(vs + j * kTile); }, done, out,
+        (wg + r * WGS) * kQRows, n, h, head, b, scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 nostage (P4): mma.sync, fragments straight from device memory
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
                                          uint32_t b0, uint32_t b1) {
@@ -93,350 +571,111 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Two floats -> packed bf16x2 (round to nearest even), the lower column in
-// the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t join_bf16(uint16_t lo, uint16_t hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
-}
-
-// The bf16 pair at (row, col), col even, of a [rows, *] source with pitch
-// ld: a staged tile in shared memory (SMEM; rows past the data were stored
-// as zeros) or device memory, where rows at or past `valid` read as zero.
-template <bool SMEM>
+// The bf16 pair at (row, col), col even, and one element's bits, of a
+// slice in device memory with pitch ld; rows at or past `valid` read as 0.
 __device__ __forceinline__ uint32_t pair_at(const bf16* src, int row, int col,
                                             int ld, int valid) {
-  if (!SMEM && row >= valid) return 0u;
+  if (row >= valid) return 0u;
   return *reinterpret_cast<const uint32_t*>(src + (size_t)row * ld + col);
 }
 
-// One bf16 element's bits, as pair_at.
-template <bool SMEM>
-__device__ __forceinline__ uint16_t bits_at(const bf16* src, int row, int col,
+__device__ __forceinline__ uint32_t bits_at(const bf16* src, int row, int col,
                                             int ld, int valid) {
-  if (!SMEM && row >= valid) return 0;
+  if (row >= valid) return 0u;
   return reinterpret_cast<const uint16_t*>(src)[(size_t)row * ld + col];
 }
 
-// Rows [row0, row0 + rows) of one [n, kHD] slice (row pitch d) into shared
-// memory with pitch kLD; rows at or past n are zero.
-__device__ void load_rows(bf16* dst, const bf16* src, int row0, int rows,
-                          int n, int d) {
-  constexpr int kChunks = kHD / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < rows * kChunks; c += blockDim.x) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * d + col);
-    *reinterpret_cast<uint4*>(dst + r * kLD + col) = val;
-  }
-}
-
-// A fragments of this warp's query rows r0 and r0 + 8 of `src`.
-template <bool SMEM>
-__device__ void q_frags(uint32_t qf[kSteps][4], const bf16* src, int r0,
-                        int ld, int valid) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk) {
-    const int col = kk * 16 + 2 * t;
-    qf[kk][0] = pair_at<SMEM>(src, r0, col, ld, valid);
-    qf[kk][1] = pair_at<SMEM>(src, r0 + 8, col, ld, valid);
-    qf[kk][2] = pair_at<SMEM>(src, r0, col + 8, ld, valid);
-    qf[kk][3] = pair_at<SMEM>(src, r0 + 8, col + 8, ld, valid);
-  }
-}
-
-// e of one score at column col: exp(s - m), s - m or s as MODE says below
-// n, 0 at or past n.
-template <int MODE>
-__device__ __forceinline__ float weight(float s, float m, int col, int n) {
-  if (col >= n) return 0.f;
-  return MODE == kFull ? expf(s - m) : MODE == kNoExp ? s - m : s;
-}
-
-__device__ __forceinline__ void quad_max(float& a, float& b) {
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    a = fmaxf(a, __shfl_xor_sync(kAll, a, off));
-    b = fmaxf(b, __shfl_xor_sync(kAll, b, off));
-  }
-}
-
-__device__ __forceinline__ void quad_sum(float& a, float& b) {
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    a += __shfl_xor_sync(kAll, a, off);
-    b += __shfl_xor_sync(kAll, b, off);
-  }
-}
-
-// Score storage: the C fragment of one 8-key tile of Q K^T (rows g and
-// g + 8, columns 2t and 2t + 1) is exactly what this thread later needs of
-// P as an A fragment of P V, so each thread stores its own 4 scores of each
-// tile as one float4 at wsc[tile * 32 + lane] (a warp's 16 rows x ns keys)
-// and reads back nothing of any other thread's.
-
-// Scaled scores of this warp's 16 query rows against keys [k0, k0 + kKeys)
-// below ns into wsc, -inf at keys at or past n, and the running row maxima
-// m0 (row g) and m1 (row g + 8) of this thread's columns. `src` holds key
-// k0 of K as its row 0.
-template <bool SMEM>
-__device__ void score_tile(const uint32_t qf[kSteps][4], const bf16* src,
-                           int ld, int valid, float4* wsc, int k0, int n,
-                           int ns, float scale, float& m0, float& m1) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < kKeys / 8; ++j) {
-    if (k0 + j * 8 < ns) {
-      float s[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int kk = 0; kk < kSteps; ++kk)
-        mma_bf16(s, qf[kk],
-                 pair_at<SMEM>(src, j * 8 + g, kk * 16 + 2 * t, ld, valid),
-                 pair_at<SMEM>(src, j * 8 + g, kk * 16 + 2 * t + 8, ld, valid));
-      const int col = k0 + j * 8 + 2 * t;
-      const float4 v = make_float4(col < n ? s[0] * scale : -INFINITY,
-                                   col + 1 < n ? s[1] * scale : -INFINITY,
-                                   col < n ? s[2] * scale : -INFINITY,
-                                   col + 1 < n ? s[3] * scale : -INFINITY);
-      wsc[((k0 >> 3) + j) * 32 + lane] = v;
-      m0 = fmaxf(m0, fmaxf(v.x, v.y));
-      m1 = fmaxf(m1, fmaxf(v.z, v.w));
-    }
-  }
-}
-
-// The row sums l0, l1 of e over all nt stored tiles, for the kernels that
-// divide before rounding P.
-template <int MODE>
-__device__ void row_sums(const float4* wsc, int nt, float m0, float m1, int n,
-                         float& l0, float& l1) {
-  const int lane = threadIdx.x & 31;
-  const int t = lane & 3;
-  l0 = l1 = 0.f;
-  for (int tile = 0; tile < nt; ++tile) {
-    const float4 v = wsc[tile * 32 + lane];
-    const int col = tile * 8 + 2 * t;
-    l0 += weight<MODE>(v.x, m0, col, n) + weight<MODE>(v.y, m0, col + 1, n);
-    l1 += weight<MODE>(v.z, m1, col, n) + weight<MODE>(v.w, m1, col + 1, n);
-  }
-  quad_sum(l0, l1);
-}
-
-// O += P V over keys [k0, k0 + kKeys) below ns for this warp's 16 rows.
-// P = e rounded to bf16, e from the stored scores; AFTER adds e to this
-// thread's row sums l0, l1, else P = e / d0 (row g) or e / d1 (row g + 8).
-// `src` holds key k0 of V as its row 0.
-template <int MODE, bool AFTER, bool SMEM>
-__device__ void pv_tile(float o[kOTiles][4], const float4* wsc, float m0,
-                        float m1, float d0, float d1, float& l0, float& l1,
-                        const bf16* src, int ld, int valid, int k0, int n,
-                        int ns) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < kKeys / 16; ++kk) {
-    const int key = k0 + kk * 16;
-    if (key < ns) {
-      const float4 lo = wsc[(key >> 3) * 32 + lane];       // keys key + 2t..
-      const float4 hi = wsc[((key >> 3) + 1) * 32 + lane]; // keys key + 8 + 2t..
-      const int c = key + 2 * t;
-      float e[8] = {weight<MODE>(lo.x, m0, c, n), weight<MODE>(lo.y, m0, c + 1, n),
-                    weight<MODE>(lo.z, m1, c, n), weight<MODE>(lo.w, m1, c + 1, n),
-                    weight<MODE>(hi.x, m0, c + 8, n), weight<MODE>(hi.y, m0, c + 9, n),
-                    weight<MODE>(hi.z, m1, c + 8, n), weight<MODE>(hi.w, m1, c + 9, n)};
-      if (AFTER) {
-        l0 += (e[0] + e[1]) + (e[4] + e[5]);
-        l1 += (e[2] + e[3]) + (e[6] + e[7]);
-      } else {
-        e[0] /= d0; e[1] /= d0; e[4] /= d0; e[5] /= d0;
-        e[2] /= d1; e[3] /= d1; e[6] /= d1; e[7] /= d1;
-      }
-      uint32_t a[4];
-      a[0] = pack_bf16(e[0], e[1]);
-      a[1] = pack_bf16(e[2], e[3]);
-      a[2] = pack_bf16(e[4], e[5]);
-      a[3] = pack_bf16(e[6], e[7]);
-      const int kr = kk * 16 + 2 * t;
-#pragma unroll
-      for (int j = 0; j < kOTiles; ++j) {
-        const int col = j * 8 + g;
-        const uint32_t b0 = join_bf16(bits_at<SMEM>(src, kr, col, ld, valid),
-                                      bits_at<SMEM>(src, kr + 1, col, ld, valid));
-        const uint32_t b1 = join_bf16(bits_at<SMEM>(src, kr + 8, col, ld, valid),
-                                      bits_at<SMEM>(src, kr + 9, col, ld, valid));
-        mma_bf16(o[j], a, b0, b1);
-      }
-    }
-  }
-}
-
-// This warp's output rows r0 and r0 + 8 of `out` (row 0 = the tile's first
-// query, pitch d), each divided by its den, where the row is below `valid`.
-__device__ void store_rows(bf16* out, const float o[kOTiles][4], int r0,
-                           int valid, int d, float den0, float den1) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int j = 0; j < kOTiles; ++j) {
-    const int col = j * 8 + 2 * t;
-    if (r0 < valid)
-      *reinterpret_cast<uint32_t*>(out + (size_t)r0 * d + col) =
-          pack_bf16(o[j][0] / den0, o[j][1] / den0);
-    if (r0 + 8 < valid)
-      *reinterpret_cast<uint32_t*>(out + (size_t)(r0 + 8) * d + col) =
-          pack_bf16(o[j][2] / den1, o[j][3] / den1);
-  }
-}
-
-// One query tile's three phases after its scores, for this warp: the row
-// maxima, the sums (before-normalising kernels), P V from `v_tile(k0)`
-// (which stages or points at key k0 of V and returns (src, ld, valid)), the
-// output. Shared by the whole-row and the batch-row kernels.
-template <int MODE, bool AFTER, bool SMEM, typename VTile>
-__device__ void finish_tile(const float4* wsc, float m0, float m1, int n,
-                            int ns, VTile v_tile, bf16* out, int r0,
-                            int valid, int d) {
-  if (MODE != kDotsOnly) quad_max(m0, m1);
-  float d0 = 1.f, d1 = 1.f;
-  if (!AFTER) row_sums<MODE>(wsc, ns >> 3, m0, m1, n, d0, d1);
-  float l0 = 0.f, l1 = 0.f;
-  float o[kOTiles][4];
-#pragma unroll
-  for (int j = 0; j < kOTiles; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  for (int k0 = 0; k0 < ns; k0 += kKeys) {
-    const bf16* src;
-    int ld, left;
-    v_tile(k0, src, ld, left);
-    pv_tile<MODE, AFTER, SMEM>(o, wsc, m0, m1, d0, d1, l0, l1, src, ld, left,
-                               k0, n, ns);
-  }
-  if (AFTER && MODE != kDotsOnly) {
-    quad_sum(l0, l1);
-  } else {
-    l0 = l1 = 1.f;
-  }
-  store_rows(out, o, r0, valid, d, l0, l1);
-}
-
-// ---------------------------------------------------------------------------
-// bf16: the whole-row kernel (P1, P2, P4) and the batch-row kernel (P3)
-// ---------------------------------------------------------------------------
-
-// Shared memory: the scores, WARPS x [ns / 8 tiles x 32 lanes] float4, then
-// (STAGED) one bf16 tile of max(BQ, kKeys) rows for Q, then each K tile,
-// then each V tile.
-template <int WARPS, int MODE, bool AFTER, bool STAGED>
-__global__ void __launch_bounds__(WARPS * 32)
-rows_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, bf16* __restrict__ out, int n, int h,
-          float scale) {
-  constexpr int BQ = WARPS * 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ns = (n + 15) & ~15;  // keys rounded up to whole 16-key steps
-  float4* sc = reinterpret_cast<float4*>(smem);
-  bf16* buf = reinterpret_cast<bf16*>(sc + WARPS * (ns >> 3) * 32);
-
+// One block per (64-query tile, slice), a warp per 16 query rows. Shared
+// memory: each warp's scores, [ns / 8 tiles x 32 lanes] float4 (ns = N
+// rounded up to 16), each thread storing and reading back only its own
+// fragment of each 8-key tile.
+__global__ void __launch_bounds__(128)
+nostage_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, bf16* __restrict__ out, int n, int h,
+             float scale) {
+  extern __shared__ __align__(16) unsigned char smem_ns[];
+  const int ns = (n + 15) & ~15;
   const int d = h * kHD;
   const size_t base =
       (size_t)(blockIdx.y / h) * n * d + (size_t)(blockIdx.y % h) * kHD;
   const int warp = threadIdx.x >> 5;
-  const int r0 = warp * 16 + ((threadIdx.x & 31) >> 2);  // tile row
-  const int q0 = blockIdx.x * BQ;
-  float4* wsc = sc + warp * (ns >> 3) * 32;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r0 = warp * 16 + g;  // tile rows r0, r0 + 8
+  const int q0 = blockIdx.x * kQRows;
+  float4* wsc = reinterpret_cast<float4*>(smem_ns) + warp * (ns >> 3) * 32;
 
-  uint32_t qf[kSteps][4];
-  if (STAGED) {
-    load_rows(buf, q + base, q0, BQ, n, d);
-    __syncthreads();
-    q_frags<true>(qf, buf, r0, kLD, 0);
-  } else {
-    q_frags<false>(qf, q + base + (size_t)q0 * d, r0, d, n - q0);
+  const bf16* qt = q + base + (size_t)q0 * d;
+  uint32_t qf[kHD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < kHD / 16; ++kk) {
+    const int col = kk * 16 + 2 * t;
+    qf[kk][0] = pair_at(qt, r0, col, d, n - q0);
+    qf[kk][1] = pair_at(qt, r0 + 8, col, d, n - q0);
+    qf[kk][2] = pair_at(qt, r0, col + 8, d, n - q0);
+    qf[kk][3] = pair_at(qt, r0 + 8, col + 8, d, n - q0);
   }
-
   float m0 = -INFINITY, m1 = -INFINITY;
-  for (int k0 = 0; k0 < ns; k0 += kKeys) {
-    if (STAGED) {
-      __syncthreads();  // every warp is done with the previous tile (or Q)
-      load_rows(buf, k + base, k0, kKeys, n, d);
-      __syncthreads();
-      score_tile<true>(qf, buf, kLD, 0, wsc, k0, n, ns, scale, m0, m1);
-    } else {
-      score_tile<false>(qf, k + base + (size_t)k0 * d, d, n - k0, wsc, k0, n,
-                        ns, scale, m0, m1);
+  for (int k0 = 0; k0 < ns; k0 += 8) {
+    const bf16* kt = k + base + (size_t)k0 * d;
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < kHD / 16; ++kk)
+      mma_bf16(s, qf[kk], pair_at(kt, g, kk * 16 + 2 * t, d, n - k0),
+               pair_at(kt, g, kk * 16 + 2 * t + 8, d, n - k0));
+    const int col = k0 + 2 * t;
+    const float4 sv = make_float4(col < n ? s[0] * scale : -INFINITY,
+                                  col + 1 < n ? s[1] * scale : -INFINITY,
+                                  col < n ? s[2] * scale : -INFINITY,
+                                  col + 1 < n ? s[3] * scale : -INFINITY);
+    wsc[(k0 >> 3) * 32 + lane] = sv;
+    m0 = fmaxf(m0, fmaxf(sv.x, sv.y));
+    m1 = fmaxf(m1, fmaxf(sv.z, sv.w));
+  }
+  quad_max(m0);
+  quad_max(m1);
+  float l0 = 0.f, l1 = 0.f;
+  float o[kHD / 8][4];
+#pragma unroll
+  for (int j = 0; j < kHD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int key = 0; key < ns; key += 16) {
+    const float4 lo = wsc[(key >> 3) * 32 + lane];        // keys key + 2t..
+    const float4 hi = wsc[((key >> 3) + 1) * 32 + lane];  // keys key + 8 + 2t..
+    const int c = key + 2 * t;
+    const float e[8] = {
+        weight<kFull>(lo.x, m0, c, n), weight<kFull>(lo.y, m0, c + 1, n),
+        weight<kFull>(lo.z, m1, c, n), weight<kFull>(lo.w, m1, c + 1, n),
+        weight<kFull>(hi.x, m0, c + 8, n), weight<kFull>(hi.y, m0, c + 9, n),
+        weight<kFull>(hi.z, m1, c + 8, n), weight<kFull>(hi.w, m1, c + 9, n)};
+    l0 += (e[0] + e[1]) + (e[4] + e[5]);
+    l1 += (e[2] + e[3]) + (e[6] + e[7]);
+    const uint32_t a[4] = {pack_bf16(e[0], e[1]), pack_bf16(e[2], e[3]),
+                           pack_bf16(e[4], e[5]), pack_bf16(e[6], e[7])};
+    const bf16* vt = v + base + (size_t)key * d;
+    const int kr = 2 * t;
+#pragma unroll
+    for (int j = 0; j < kHD / 8; ++j) {
+      const int col = j * 8 + g;
+      const uint32_t b0 = bits_at(vt, kr, col, d, n - key) |
+                          (bits_at(vt, kr + 1, col, d, n - key) << 16);
+      const uint32_t b1 = bits_at(vt, kr + 8, col, d, n - key) |
+                          (bits_at(vt, kr + 9, col, d, n - key) << 16);
+      mma_bf16(o[j], a, b0, b1);
     }
   }
-  auto v_tile = [&](int k0, const bf16*& src, int& ld, int& left) {
-    if (STAGED) {
-      __syncthreads();
-      load_rows(buf, v + base, k0, kKeys, n, d);
-      __syncthreads();
-      src = buf;
-      ld = kLD;
-      left = 0;
-    } else {
-      src = v + base + (size_t)k0 * d;
-      ld = d;
-      left = n - k0;
-    }
-  };
-  finish_tile<MODE, AFTER, STAGED>(wsc, m0, m1, n, ns, v_tile,
-                                   out + base + (size_t)q0 * d, r0, n - q0, d);
-}
-
-// Shared memory: the scores of 4 warps as rows_bf16's, the head's K and V
-// [nk, kLD] bf16 (nk = N rounded up to whole key tiles, zero past N), a Q
-// tile [64, kLD].
-__global__ void __launch_bounds__(128, 1)
-scratch_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ out, int n, int h,
-             float scale) {
-  constexpr int BQ = 64;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ns = (n + 15) & ~15;
-  const int nk = (n + kKeys - 1) / kKeys * kKeys;
-  float4* sc = reinterpret_cast<float4*>(smem);
-  bf16* ks = reinterpret_cast<bf16*>(sc + 4 * (ns >> 3) * 32);
-  bf16* vs = ks + nk * kLD;
-  bf16* qs = vs + nk * kLD;
-
-  const int d = h * kHD;
-  const int warp = threadIdx.x >> 5;
-  const int r0 = warp * 16 + ((threadIdx.x & 31) >> 2);
-  float4* wsc = sc + warp * (ns >> 3) * 32;
-
-  for (int head = 0; head < h; ++head) {
-    const size_t base = (size_t)blockIdx.x * n * d + (size_t)head * kHD;
-    __syncthreads();  // every warp is done with the previous head
-    load_rows(ks, k + base, 0, nk, n, d);
-    load_rows(vs, v + base, 0, nk, n, d);
-    for (int q0 = 0; q0 < n; q0 += BQ) {
-      __syncthreads();  // K and V staged; every warp is done with qs
-      load_rows(qs, q + base, q0, BQ, n, d);
-      __syncthreads();
-      uint32_t qf[kSteps][4];
-      q_frags<true>(qf, qs, r0, kLD, 0);
-      float m0 = -INFINITY, m1 = -INFINITY;
-      for (int k0 = 0; k0 < ns; k0 += kKeys)
-        score_tile<true>(qf, ks + k0 * kLD, kLD, 0, wsc, k0, n, ns, scale, m0,
-                         m1);
-      auto v_tile = [&](int k0, const bf16*& src, int& ld, int& left) {
-        src = vs + k0 * kLD;
-        ld = kLD;
-        left = 0;
-      };
-      finish_tile<kFull, false, true>(wsc, m0, m1, n, ns, v_tile,
-                                      out + base + (size_t)q0 * d, r0, n - q0,
-                                      d);
-    }
+  quad_sum(l0);
+  quad_sum(l1);
+  bf16* ot = out + base + (size_t)q0 * d;
+#pragma unroll
+  for (int j = 0; j < kHD / 8; ++j) {
+    const int col = j * 8 + 2 * t;
+    if (r0 < n - q0)
+      *reinterpret_cast<uint32_t*>(ot + (size_t)r0 * d + col) =
+          pack_bf16(o[j][0] / l0, o[j][1] / l0);
+    if (r0 + 8 < n - q0)
+      *reinterpret_cast<uint32_t*>(ot + (size_t)(r0 + 8) * d + col) =
+          pack_bf16(o[j][2] / l1, o[j][3] / l1);
   }
 }
 
@@ -617,47 +856,98 @@ scratch_f32(const float* __restrict__ q, const float* __restrict__ k,
 // Launches
 // ---------------------------------------------------------------------------
 
+// Sets the shared-memory attribute of `kernel` once per device, to the most
+// a block may have (a launch's bytes vary with N), after checking that a
+// launch of `bytes` fits. Returns a cudaError_t.
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+int prepare(Kernel kernel, int bytes, unsigned long long& done) {
+  if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  return allow_smem(kernel, kMaxSmem, done);
 }
 
-template <int WARPS, int MODE, bool AFTER, bool STAGED>
-cudaError_t launch_rows_bf16(const void* q, const void* k, const void* v,
-                             void* out, int b, int n, int h, float scale,
-                             cudaStream_t stream) {
-  constexpr int BQ = WARPS * 16;
-  constexpr int kBufRows = BQ > kKeys ? BQ : kKeys;
-  const size_t ns = (n + 15) & ~15;
-  const size_t bytes = (size_t)BQ * ns * sizeof(float) +
-                       (STAGED ? (size_t)kBufRows * kLD * sizeof(bf16) : 0);
-  auto kernel = rows_bf16<WARPS, MODE, AFTER, STAGED>;
-  cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + BQ - 1) / BQ, b * h);
-  kernel<<<grid, WARPS * 32, bytes, stream>>>(
+// Warpgroups a block of the batch-row kernel runs: two while they fit.
+int scratch_wgs(int n) { return scratch_smem(2, n) <= kMaxSmem ? 2 : 1; }
+
+template <int WGS, int MODE, bool AFTER>
+int launch_rows_bf16(const void* q, const void* k, const void* v, void* out,
+                     int b, int n, int h, float scale, cudaStream_t stream) {
+  auto kernel = rows_bf16<WGS, MODE, AFTER>;
+  static unsigned long long attr_set = 0;
+  const int bytes = rows_smem(WGS);
+  const int d = h * kHD;
+  CUtensorMap tq, tk, tv;
+  int rc = prepare(kernel, bytes, attr_set);
+  if (!rc) rc = encode_rows(&tq, q, b, n, d, kQRows, kHD);
+  if (!rc) rc = encode_rows(&tk, k, b, n, d, kKeys, kHD);
+  if (!rc) rc = encode_rows(&tv, v, b, n, d, kKeys, kHD);
+  if (rc) return rc;
+  const int slices = b * h;
+  const int blocks = slices * ((n + WGS * kQRows - 1) / (WGS * kQRows));
+  kernel<<<blocks, WGS * 128, bytes, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(out), n, h, slices, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int WGS>
+int launch_scratch_bf16(const void* q, const void* k, const void* v,
+                        void* out, int b, int n, int h, float scale,
+                        cudaStream_t stream) {
+  auto kernel = scratch_bf16<WGS>;
+  static unsigned long long attr_set = 0;
+  const int bytes = scratch_smem(WGS, n);
+  const int d = h * kHD;
+  CUtensorMap tq, tk, tv;
+  int rc = prepare(kernel, bytes, attr_set);
+  if (!rc) rc = encode_rows(&tq, q, b, n, d, kQRows, kHD);
+  if (!rc) rc = encode_rows(&tk, k, b, n, d, kBox, kHD);
+  if (!rc) rc = encode_rows(&tv, v, b, n, d, kBox, kHD);
+  if (rc) return rc;
+  kernel<<<b * h, WGS * 128, bytes, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(out), n, h, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_nostage_bf16(const void* q, const void* k, const void* v,
+                        void* out, int b, int n, int h, float scale,
+                        cudaStream_t stream) {
+  static unsigned long long attr_set = 0;
+  const int bytes = nostage_smem(n);
+  const int rc = prepare(nostage_bf16, bytes, attr_set);
+  if (rc) return rc;
+  const dim3 grid((n + kQRows - 1) / kQRows, b * h);
+  nostage_bf16<<<grid, 128, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), n, h, scale);
-  return cudaGetLastError();
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int MODE, bool AFTER, bool STAGED>
-cudaError_t launch_rows_f32(const void* q, const void* k, const void* v,
-                            void* out, int b, int n, int h, float scale,
-                            cudaStream_t stream) {
-  const size_t sp = ((n + 31) & ~31) + 4;
-  const size_t bytes = (size_t)kF32Rows * sp * sizeof(float) +
-                       (STAGED ? (size_t)kF32Keys * kHD * sizeof(float) : 0);
+int launch_rows_f32(const void* q, const void* k, const void* v, void* out,
+                    int b, int n, int h, float scale, cudaStream_t stream) {
   auto kernel = rows_f32<MODE, AFTER, STAGED>;
-  cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return err;
+  static unsigned long long attr_set = 0;
+  const int sp = ((n + 31) & ~31) + 4;
+  const int bytes = (kF32Rows * sp + (STAGED ? kF32Keys * kHD : 0)) * 4;
+  const int rc = prepare(kernel, bytes, attr_set);
+  if (rc) return rc;
   const dim3 grid((n + kF32Rows - 1) / kF32Rows, b * h);
   kernel<<<grid, 128, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), n, h, scale);
-  return cudaGetLastError();
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_scratch_f32(const void* q, const void* k, const void* v, void* out,
+                       int b, int n, int h, float scale, cudaStream_t stream) {
+  static unsigned long long attr_set = 0;
+  const int sp = ((n + 31) & ~31) + 4;
+  const int bytes = (kF32Rows * sp + 2 * n * kHD) * 4;
+  const int rc = prepare(scratch_f32, bytes, attr_set);
+  if (rc) return rc;
+  scratch_f32<<<b, 128, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), n, h, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -667,11 +957,12 @@ cudaError_t launch_rows_f32(const void* q, const void* k, const void* v,
 // passes h = 1. mode: 0 full, 1 noexp, 2 dotsonly. norm_after: 0 divides
 // before rounding P (P1, P2), 1 after P.V (P4). staged: 1 stages the
 // operands through shared memory, 0 (P4 nostage) loads them from device
-// memory. rows: query rows per block, 16, 32, 64 or 128 for bf16 full
+// memory. rows: query rows per block, 64 or 128 for bf16 full
 // normalise-before staged (P1's sweep), else 64 for bf16 and 32 for f32.
 // Built variants: full before staged (P1, P2); full, noexp and dotsonly
 // after staged, and full after unstaged (P4). Launches on `stream` and
-// returns cudaGetLastError(), or cudaErrorInvalidValue for a variant, head
+// returns the first error: of the shared-memory attribute or the tensor
+// maps, else cudaGetLastError(); cudaErrorInvalidValue for a variant, head
 // dim or size it does not take (the scores must fit in shared memory).
 extern "C" int missm_probe_rows_attention(const void* q, const void* k,
                                           const void* v, void* out, int b,
@@ -682,72 +973,66 @@ extern "C" int missm_probe_rows_attention(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim != kHD || n < 1 || b < 1 || h < 1 || (long)b * h > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaErrorInvalidValue;
+  int rc = static_cast<int>(cudaErrorInvalidValue);
 #define MISSM_ARGS q, k, v, out, b, n, h, scale, s
   if (is_bf16) {
-    if (mode == kFull && !norm_after && staged) {
-      switch (rows) {
-        case 16: err = launch_rows_bf16<1, kFull, false, true>(MISSM_ARGS); break;
-        case 32: err = launch_rows_bf16<2, kFull, false, true>(MISSM_ARGS); break;
-        case 64: err = launch_rows_bf16<4, kFull, false, true>(MISSM_ARGS); break;
-        case 128: err = launch_rows_bf16<8, kFull, false, true>(MISSM_ARGS); break;
-        default: break;
-      }
-    } else if (rows == 64 && norm_after && staged) {
-      if (mode == kFull) err = launch_rows_bf16<4, kFull, true, true>(MISSM_ARGS);
-      if (mode == kNoExp) err = launch_rows_bf16<4, kNoExp, true, true>(MISSM_ARGS);
+    if (!staged) {
+      if (mode == kFull && norm_after && rows == 64)
+        rc = launch_nostage_bf16(MISSM_ARGS);
+    } else if (mode == kFull && !norm_after) {
+      if (rows == 64) rc = launch_rows_bf16<1, kFull, false>(MISSM_ARGS);
+      if (rows == 128) rc = launch_rows_bf16<2, kFull, false>(MISSM_ARGS);
+    } else if (norm_after && rows == 64) {
+      if (mode == kFull) rc = launch_rows_bf16<1, kFull, true>(MISSM_ARGS);
+      if (mode == kNoExp) rc = launch_rows_bf16<1, kNoExp, true>(MISSM_ARGS);
       if (mode == kDotsOnly)
-        err = launch_rows_bf16<4, kDotsOnly, true, true>(MISSM_ARGS);
-    } else if (rows == 64 && norm_after && mode == kFull) {
-      err = launch_rows_bf16<4, kFull, true, false>(MISSM_ARGS);
+        rc = launch_rows_bf16<1, kDotsOnly, true>(MISSM_ARGS);
     }
   } else if (rows == kF32Rows) {
     if (mode == kFull && !norm_after && staged)
-      err = launch_rows_f32<kFull, false, true>(MISSM_ARGS);
+      rc = launch_rows_f32<kFull, false, true>(MISSM_ARGS);
     else if (norm_after && staged && mode == kFull)
-      err = launch_rows_f32<kFull, true, true>(MISSM_ARGS);
+      rc = launch_rows_f32<kFull, true, true>(MISSM_ARGS);
     else if (norm_after && staged && mode == kNoExp)
-      err = launch_rows_f32<kNoExp, true, true>(MISSM_ARGS);
+      rc = launch_rows_f32<kNoExp, true, true>(MISSM_ARGS);
     else if (norm_after && staged && mode == kDotsOnly)
-      err = launch_rows_f32<kDotsOnly, true, true>(MISSM_ARGS);
+      rc = launch_rows_f32<kDotsOnly, true, true>(MISSM_ARGS);
     else if (norm_after && mode == kFull)
-      err = launch_rows_f32<kFull, true, false>(MISSM_ARGS);
+      rc = launch_rows_f32<kFull, true, false>(MISSM_ARGS);
   }
 #undef MISSM_ARGS
-  return static_cast<int>(err);
+  return rc;
 }
 
-// The batch-row kernel (P3): one block per batch row b of q, k, v, out
-// [b, n, h * head_dim] (contiguous, 16-byte aligned, bf16 or f32), looping
-// over the h heads; P1's whole-row softmax and rounding. Returns as
-// missm_probe_rows_attention (a head's K and V must fit in shared memory).
+// The batch-row kernel (P3) on q, k, v, out [b, n, h * head_dim]
+// (contiguous, 16-byte aligned, bf16 or f32): bf16, one block per (batch,
+// head) with two warpgroups while they fit, else one; f32, one block per
+// batch row looping over the h heads. P1's whole-row softmax and rounding.
+// Returns as missm_probe_rows_attention (a head's K and V must fit in
+// shared memory).
 extern "C" int missm_probe_scratch_attention(const void* q, const void* k,
                                              const void* v, void* out, int b,
                                              int n, int h, int head_dim,
                                              int is_bf16, float scale,
                                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim != kHD || n < 1 || b < 1 || h < 1 || b > 65535)
+  if (head_dim != kHD || n < 1 || b < 1 || h < 1 || (long)b * h > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err;
-  if (is_bf16) {
-    const size_t ns = (n + 15) & ~15;
-    const size_t nk = (n + kKeys - 1) / kKeys * kKeys;
-    const size_t bytes = 64 * ns * sizeof(float) +
-                         (2 * nk + 64) * kLD * sizeof(bf16);
-    err = allow_smem(scratch_bf16, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    scratch_bf16<<<b, 128, bytes, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(out), n, h, scale);
-  } else {
-    const size_t sp = ((n + 31) & ~31) + 4;
-    const size_t bytes = (kF32Rows * sp + 2 * (size_t)n * kHD) * sizeof(float);
-    err = allow_smem(scratch_f32, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    scratch_f32<<<b, 128, bytes, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), n, h, scale);
+  if (!is_bf16) return launch_scratch_f32(q, k, v, out, b, n, h, scale, s);
+  if (scratch_wgs(n) == 2)
+    return launch_scratch_bf16<2>(q, k, v, out, b, n, h, scale, s);
+  return launch_scratch_bf16<1>(q, k, v, out, b, n, h, scale, s);
+}
+
+// The dynamic shared memory a bf16 launch at N = n asks for: kernel 0 the
+// whole-row kernel at `rows` query rows a block (64 or 128), 1 the
+// batch-row kernel, 2 the nostage kernel (rows unused); 0 for another
+// kernel. What kernels/probe_attention.py::plan says.
+extern "C" int missm_probe_attention_smem(int kernel, int n, int rows) {
+  switch (kernel) {
+    case 0: return rows == 64 || rows == 128 ? rows_smem(rows / 64) : 0;
+    case 1: return scratch_smem(scratch_wgs(n), n);
+    case 2: return nostage_smem(n);
+    default: return 0;
   }
-  return static_cast<int>(cudaGetLastError());
 }

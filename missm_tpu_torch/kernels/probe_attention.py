@@ -9,8 +9,8 @@ The wrappers, by the TPU kernel each takes the place of (scripts/):
 - `tower_bhne` (P2, ablation_probe.py:84 `make_tower_bhne`): [B, H, N, hd];
   the whole-row kernel on its B*H slices.
 - `tower_scratch` (P3, ablation_probe.py:152 `make_tower_scratch`):
-  [B, N, H*hd]; the batch-row kernel, one block per batch row over all
-  heads.
+  [B, N, H*hd]; the batch-row kernel, one block per (batch, head) that
+  stages the head's whole K and V once for all its query tiles.
 - `tower_packed_debug` (P4, ablation_probe.py:210
   `make_tower_packed_debug`): [B, N, H*hd] in one of MODES; the whole-row
   kernel with the production kernel's rounding order and the knock-outs.
@@ -21,10 +21,18 @@ differentiates them, so the kernels are forward only: on a CUDA tensor a
 wrapper launches its kernel or raises, and a call that autograd records
 raises NotImplementedError. On a CPU tensor it computes the plain version.
 The kernels are built for hd = 64, the probes' head dim.
+
+`plan` says what a bf16 launch computes: its grid, its query and key tiles,
+its passes over the keys and its shared memory, as the C launchers compute
+them; the largest N each kernel takes (`max_n`, SCRATCH_MAX_N) follows from
+it. The whole-row kernel keeps no score row in shared memory, so it takes
+any N.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -35,14 +43,19 @@ from .launches import LAUNCHES
 HEAD_DIM = 64                     # the one head dim the kernels are built for
 MODES = ("full", "noexp", "dotsonly", "nostage")
 _MODE_IDS = {"full": 0, "noexp": 1, "dotsonly": 2, "nostage": 0}
-# Query rows per block of the bf16 whole-row kernel, the largest N each
-# takes (its f32 score rows live in shared memory), and P1's default; the
-# f32 kernel takes 32 rows and the same N as the default.
-ROWS_MAX_N = {16: 768, 32: 768, 64: 768, 128: 400}
-ROWS = tuple(ROWS_MAX_N)
+KERNELS = ("rows", "scratch", "nostage")  # plan's names, the C kernel ids
+# The bf16 kernels' tiles and shared memory (`plan`, the C launchers):
+QUERY_ROWS = 64                   # query rows of a warpgroup: wgmma's M
+KEYS = 64                         # keys of a full K or V tile
+STAGES = 4                        # tiles in the whole-row kernel's ring
+BOX = 16                          # rows of a TMA box of P3's K and V
+TILE_BYTES = QUERY_ROWS * HEAD_DIM * 2   # one 64-row bf16 tile
+SMEM_LIMIT = 232_448              # the most dynamic shared memory a block may have
+# Query rows per block of the bf16 whole-row kernel (one warpgroup, or two
+# sharing the ring) for P1's sweep, and its default; the f32 kernels take 32.
+ROWS = (64, 128)
 DEFAULT_ROWS = 64
 _F32_ROWS = 32
-SCRATCH_MAX_N = 320               # the batch-row kernel stages a head whole
 
 
 # ---------------------------------------------------------------------------
@@ -104,6 +117,119 @@ def packed_attention_plain(q, k, v, num_heads: int, mode: str):
 
 
 # ---------------------------------------------------------------------------
+# Plans: what a bf16 launch computes (the C launchers compute the same)
+# ---------------------------------------------------------------------------
+
+
+def _tiles(n: int, width: int):
+    """(first, live) per tile of `width` rows over n rows."""
+    return tuple((i, min(width, n - i)) for i in range(0, n, width))
+
+
+def _round(x: int, to: int) -> int:
+    return -(-x // to) * to
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One bf16 launch of csrc/probe_attention.cu over `slices` (batch,
+    head) slices of N tokens.
+
+    kernel: "rows" (the whole-row kernel: P1, P2, P4 full, noexp,
+    dotsonly), "scratch" (the batch-row kernel: P3) or "nostage" (P4
+    nostage, mma.sync). warpgroups: per block (nostage: its 4 warps count
+    as one). grid: the launch's blocks. rows: (first, live) of each query
+    tile that a block (rows, nostage) or one of its warpgroups in turn
+    (scratch) computes, in launch order: the full tiles, then the ragged
+    one. cols: (first, width) of each key tile every query tile visits,
+    the last narrowed to its keys rounded up to 8 (wgmma's N step; nostage:
+    16, mma.sync's k). passes: how often each query tile computes its
+    scores (the statistics pass, then the output pass; dotsonly and
+    nostage: once). smem_bytes: the block's dynamic shared memory, which
+    the C launcher asks for."""
+    kernel: str
+    warpgroups: int
+    grid: int
+    rows: tuple
+    cols: tuple
+    passes: int
+    smem_bytes: int
+
+    @property
+    def scores(self) -> int:
+        """Score entries computed per slice: each query tile's rows (64 a
+        warpgroup, wgmma's M, whether live or not; nostage: its 4 warps'
+        64) times each key tile's width, once per pass."""
+        height = QUERY_ROWS * (self.warpgroups if self.kernel == "rows"
+                               else 1)
+        return (self.passes * height * len(self.rows)
+                * sum(w for _, w in self.cols))
+
+
+@functools.lru_cache(maxsize=None)
+def plan(n: int, kernel: str = "rows", rows: int = DEFAULT_ROWS,
+         slices: int = 1, mode: str = "full") -> Plan:
+    """What the bf16 `kernel` computes at N = n tokens over `slices`
+    slices in `mode` (one of MODES); `rows` (the whole-row kernel): query
+    rows a block, one of ROWS."""
+    if n < 1:
+        raise ValueError(f"N must be at least 1; got {n}")
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}; got {mode!r}")
+    keys = tuple((i, _round(w, 16 if kernel == "nostage" else 8))
+                 for i, w in _tiles(n, KEYS))
+    passes = 1 if kernel == "nostage" or mode == "dotsonly" else 2
+    if kernel == "rows":
+        if rows not in ROWS:
+            raise ValueError(f"no whole-row kernel of {rows} query rows")
+        wgs = rows // QUERY_ROWS
+        tiles = _tiles(n, rows)
+        smem = 1024 + (wgs + STAGES) * TILE_BYTES + 8 * (1 + STAGES)
+        return Plan(kernel, wgs, slices * len(tiles), tiles, keys, passes,
+                    smem)
+    tiles = _tiles(n, QUERY_ROWS)
+    if kernel == "scratch":
+        def smem(wgs):
+            return (1024 + 2 * wgs * TILE_BYTES
+                    + 2 * _round(n, BOX) * HEAD_DIM * 2 + 8 * (1 + 2 * wgs))
+        wgs = 2 if smem(2) <= SMEM_LIMIT else 1
+        return Plan(kernel, wgs, slices, tiles, keys, passes, smem(wgs))
+    if kernel == "nostage":
+        return Plan(kernel, 1, slices * len(tiles), tiles, keys, passes,
+                    QUERY_ROWS * _round(n, 16) * 4)
+    raise ValueError(f"no kernel {kernel!r}; one of {KERNELS}")
+
+
+def _f32_smem(kernel: str, n: int) -> int:
+    """The dynamic shared memory of an f32 launch: the score rows of 32
+    queries (pitch N rounded up to 32, plus 4), and a staged K/V tile of 32
+    keys (rows) or the head's whole K and V (scratch)."""
+    sp = _round(n, 32) + 4
+    return 4 * (32 * sp + (2 * n * HEAD_DIM if kernel == "scratch"
+                           else 32 * HEAD_DIM))
+
+
+def _smem(kernel, n, rows, bf16):
+    return plan(n, kernel, rows).smem_bytes if bf16 else _f32_smem(kernel, n)
+
+
+def max_n(kernel: str, rows: int = DEFAULT_ROWS, bf16: bool = True):
+    """The largest N whose launch of `kernel` (bf16: `plan`; f32: its
+    CUDA-core kernel) fits in a block's shared memory, which grows with N;
+    None for the bf16 whole-row kernel, whose shared memory holds no row
+    and does not grow with N."""
+    if bf16 and kernel == "rows":
+        return None
+    n = 1
+    while _smem(kernel, n + 1, rows, bf16) <= SMEM_LIMIT:
+        n += 1
+    return n
+
+
+SCRATCH_MAX_N = max_n("scratch")                             # 832
+
+
+# ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
 
@@ -132,23 +258,24 @@ def tower_bhne(q, k, v):
 
 
 def tower_scratch(q, k, v, num_heads: int):
-    """P3: attention per (batch, head) of q, k, v [B, N, H*hd], one block
-    per batch row looping over the heads."""
+    """P3: attention per (batch, head) of q, k, v [B, N, H*hd]: bf16, one
+    block per (batch, head) with the head's whole K and V staged once for
+    all its query tiles; f32, one block per batch row looping over the
+    heads."""
     if q.device.type == "cpu":
         return rows_attention_plain(q, k, v, layout="tokens",
                                     num_heads=num_heads)
     _check("tower_scratch", (q, k, v), 3, num_heads)
     B, N, D = q.shape
-    if N > SCRATCH_MAX_N:
-        raise ValueError(f"tower_scratch kernel takes N <= {SCRATCH_MAX_N}; "
-                         f"got {N}")
+    bf16 = q.dtype == torch.bfloat16
+    _fits("scratch", N, bf16)
     out = torch.empty_like(q)
     fn = build.function("probe_attention", "missm_probe_scratch_attention",
                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                         + [ctypes.c_float, ctypes.c_void_p])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, N,
-            num_heads, HEAD_DIM, int(q.dtype == torch.bfloat16),
-            HEAD_DIM ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+            num_heads, HEAD_DIM, int(bf16), HEAD_DIM ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"tower_scratch kernel launch failed: CUDA error "
                            f"{rc}")
@@ -203,18 +330,24 @@ def _check(name, tensors, dims, num_heads=None):
                              f"on {q.device}")
 
 
+def _fits(kernel, n, bf16, rows=DEFAULT_ROWS):
+    """Raise unless a launch of `kernel` at N = n fits in shared memory."""
+    if _smem(kernel, n, rows, bf16) > SMEM_LIMIT:
+        raise ValueError(f"the {kernel} kernel takes N <= "
+                         f"{max_n(kernel, rows, bf16)} in "
+                         f"{'bf16' if bf16 else 'f32'}; got {n}")
+
+
 def _launch_rows(q, k, v, b, n, h, mode, *, after, rows=DEFAULT_ROWS):
-    """The whole-row kernel on b * h slices of n rows (row pitch h * hd)."""
+    """The whole-row kernel (nostage: its mma.sync kernel) on b * h slices
+    of n rows (row pitch h * hd)."""
     bf16 = q.dtype == torch.bfloat16
     if not bf16:
         rows = _F32_ROWS
     elif rows not in ROWS or (rows != DEFAULT_ROWS
                               and (after or mode != "full")):
         raise ValueError(f"no kernel of {rows} query rows for mode {mode}")
-    max_n = ROWS_MAX_N[DEFAULT_ROWS if not bf16 else rows]
-    if n > max_n:
-        raise ValueError(f"the whole-row kernel takes N <= {max_n} at "
-                         f"{rows} query rows; got {n}")
+    _fits("nostage" if mode == "nostage" else "rows", n, bf16, rows)
     out = torch.empty_like(q)
     fn = build.function("probe_attention", "missm_probe_rows_attention",
                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9

@@ -13,7 +13,8 @@ swapped per arm (ARMS):
   packed noexp     P4 with exp knocked out: e = s - m, den = sum(s - m)
   packed nostage   P4 with its operands read from device memory, not staged
   packed full      P4 as production computes it, with a whole-row softmax
-  scratch          P3: one block per batch row over all 16 heads
+  scratch          P3: one block per (batch, head), the head's whole K
+                   and V staged once for all its query tiles
   bhne             P2: q, k, v projected head-major [B, H, N, hd] (bias
                    added in f32 before the one rounding), attention per
                    (batch, head), the out-projection reading the

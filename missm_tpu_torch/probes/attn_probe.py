@@ -15,8 +15,9 @@ the median of `runs` calls between CUDA events after two warm-up calls
 The script sweeps group in {1, 4, 8, 16}, the slices per TPU grid step,
 which has no meaning on this card: blocks run in parallel over 132 SMs.
 The sweep here is the kernel's own tile choice, the query rows per block
-(kernels.probe_attention.ROWS), which sets how many blocks share each
-slice's K and V and how much shared memory a block's score rows take.
+(kernels.probe_attention.ROWS: one warpgroup of 64 rows, or two sharing
+the block's ring of K and V tiles), which sets how many blocks stream each
+slice's K and V.
 Before timing, each tile's output is held against the plain version
 (`parity`, max abs err).
 

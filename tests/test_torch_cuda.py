@@ -806,13 +806,18 @@ PROBE_ROUTES = {
 }
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n", [257, 77, 5, 320])
-@pytest.mark.parametrize("route", PROBE_ROUTES)
-def test_probe_kernel_matches_plain(cuda, route, n, dtype):
-    """Each probe route and mode against its plain version at the probes'
-    N = 257 and at ragged N (one partial key step, fewer keys than one
-    tile, the batch-row kernel's largest N), one launch each."""
+# The kernel each route launches in bf16 (`pa.plan`'s name; f32 has its
+# own CUDA-core kernels with their own limits).
+PROBE_KERNELS = {"P3": "scratch", "P4 nostage": "nostage"}
+# Every tile edge of the bf16 kernels (8-key groups, 16-key steps, 64-row
+# tiles, the two warpgroups of the batch-row kernel), and the route's limit.
+PROBE_EDGE_N = (1, 8, 15, 16, 17, 63, 64, 65, 127, 128, 129, 257, 320,
+                "limit")
+
+
+def _probe_matches_plain(cuda, route, n, dtype):
+    """One launch of the route's wrapper at N = n against its plain
+    version, on seeded inputs of the route's shape."""
     name, run, plain, shape = PROBE_ROUTES[route]
     gen = torch.Generator(device=cuda).manual_seed(n)
     q, k, v = (torch.randn(*shape(n), generator=gen, device=cuda).to(dtype)
@@ -823,6 +828,11 @@ def test_probe_kernel_matches_plain(cuda, route, n, dtype):
         ref = plain(q, k, v)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
+    if route == "P4 noexp" and n == 1:
+        # one key: den = sum(s - m) = 0 and e = 0, so the function is 0 / 0
+        assert got.isnan().all() and ref.isnan().all()
+        assert kernels.LAUNCHES == _counts(**{name: 1})
+        return
     assert torch.isfinite(got).all()
     atol, rtol = TOL[dtype]
     if route == "P4 dotsonly":
@@ -840,12 +850,68 @@ def test_probe_kernel_matches_plain(cuda, route, n, dtype):
     assert kernels.LAUNCHES == _counts(**{name: 1})
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [257, 77, 5, 320])
+@pytest.mark.parametrize("route", PROBE_ROUTES)
+def test_probe_kernel_matches_plain(cuda, route, n, dtype):
+    """Each probe route and mode against its plain version at the probes'
+    N = 257 and at ragged N (one partial key step, fewer keys than one
+    tile, the batch-row kernel with one warpgroup), one launch each."""
+    _probe_matches_plain(cuda, route, n, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", PROBE_EDGE_N)
+@pytest.mark.parametrize("route", PROBE_ROUTES)
+def test_probe_kernel_edges_match_plain(cuda, route, n, dtype):
+    """Each probe route and mode at every tile edge and at the largest N
+    its kernel takes in the type, against its plain version."""
+    if n == "limit":
+        # the bf16 whole-row kernel keeps no score row and has no limit:
+        # a row longer than any kernel's limit instead
+        n = pa.max_n(PROBE_KERNELS.get(route, "rows"),
+                     bf16=dtype == torch.bfloat16) or 1025
+    _probe_matches_plain(cuda, route, n, dtype)
+
+
+@pytest.mark.parametrize("g", [1, 67])
+@pytest.mark.parametrize("rows", pa.ROWS)
+def test_probe_kernel_partial_wave(cuda, rows, g):
+    """P1 over slice counts whose blocks fill no whole wave of the card
+    (67 slices of 257 rows: 335 or 201 blocks), at each tile."""
+    gen = torch.Generator(device=cuda).manual_seed(g)
+    q, k, v = (torch.randn(g, 257, 64, generator=gen, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    got = pa.attn_probe_fused(q, k, v, rows=rows)
+    ref = pa.rows_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    atol, rtol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+def test_probe_plans_ask_for_the_kernels_shared_memory(cuda):
+    """kernels/probe_attention.py::plan's dynamic shared memory is what the
+    C launchers ask for, for every bf16 kernel at every edge and limit."""
+    import ctypes
+
+    from missm_tpu_torch.kernels import build
+    smem = build.function("probe_attention", "missm_probe_attention_smem",
+                          [ctypes.c_int] * 3)
+    for kernel, rows in (("rows", 64), ("rows", 128), ("scratch", 64),
+                         ("nostage", 64)):
+        limit = pa.max_n(kernel, rows) or 1025
+        for n in (*PROBE_EDGE_N[:-1], 768, 769, limit, limit + 1):
+            assert smem(pa.KERNELS.index(kernel), n, rows) == pa.plan(
+                n, kernel, rows).smem_bytes, (kernel, rows, n)
+
+
 @pytest.mark.parametrize("rows", pa.ROWS)
 def test_probe_kernel_tiles_agree(cuda, rows):
     """Every query-row tile P1's probe sweeps gives the plain version's
-    result, at N = 257 and at the largest N the tile takes."""
+    result, at N = 257 and at a row longer than any kernel's limit (the
+    whole-row kernel keeps no score row, so it takes any N)."""
     gen = torch.Generator(device=cuda).manual_seed(rows)
-    for n in (257, pa.ROWS_MAX_N[rows]):
+    for n in (257, 1025):
         q, k, v = (torch.randn(4, n, 64, generator=gen, device=cuda)
                    .to(torch.bfloat16) for _ in range(3))
         got = pa.attn_probe_fused(q, k, v, rows=rows)
@@ -899,9 +965,21 @@ def test_probe_kernels_reject_what_they_do_not_take(cuda):
             pa.tower_scratch(x, x, x, 4)                              # hd 32
         with pytest.raises(ValueError):
             pa.tower_packed_debug(x, x, x, 2, "nodots")               # mode
-        long = torch.zeros(1, pa.SCRATCH_MAX_N + 1, 128, device=cuda)
+        xb = x.bfloat16()
         with pytest.raises(ValueError):
-            pa.tower_scratch(long, long, long, 2)                     # N
-        longer = torch.zeros(1, pa.ROWS_MAX_N[64] + 1, 64, device=cuda)
+            pa._launch_rows(xb, xb, xb, 2, 17, 2, "full", after=True,
+                            rows=128)                                 # tile
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            long = torch.zeros(1, pa.max_n("scratch", bf16=bf16) + 1, 128,
+                               device=cuda, dtype=dtype)
+            with pytest.raises(ValueError):
+                pa.tower_scratch(long, long, long, 2)                 # N
+        longer = torch.zeros(1, pa.max_n("nostage") + 1, 128, device=cuda,
+                             dtype=torch.bfloat16)
         with pytest.raises(ValueError):
-            pa.attn_probe_fused(longer, longer, longer)               # N
+            pa.tower_packed_debug(longer, longer, longer, 2, "nostage")  # N
+        longest = torch.zeros(1, pa.max_n("rows", bf16=False) + 1, 64,
+                              device=cuda)
+        with pytest.raises(ValueError):
+            pa.attn_probe_fused(longest, longest, longest)            # N

@@ -323,3 +323,68 @@ def test_attn_probe_runs_on_the_cpu(monkeypatch):
     assert 0.0 < par["scale"] < 10.0
     ms = attn_probe.run(q, k, v, runs=3)
     assert len(ms) == 3 + len(pa.ROWS) and calls == [3] * len(ms)
+
+
+# `plan` of the bf16 probe kernels: (kernel, query rows a block) per route
+PLAN_ROUTES = {"P1/P2/P4 rows=64": ("rows", 64), "P1 rows=128": ("rows", 128),
+               "P3": ("scratch", 64), "P4 nostage": ("nostage", 64)}
+PLAN_N = (1, 8, 15, 16, 17, 63, 64, 65, 127, 128, 129, 257, 320, 768, 769,
+          *sorted({pa.max_n(k, r) for k, r in PLAN_ROUTES.values()} - {None}),
+          1025)
+
+
+@pytest.mark.parametrize("n", PLAN_N)
+@pytest.mark.parametrize("route", PLAN_ROUTES)
+def test_probe_plan_fits_and_covers_n_once(route, n):
+    """Each launch's shared memory is at most SMEM_LIMIT (232,448 bytes)
+    exactly where N is at most the route's limit, and the limit is the
+    largest N that fits (the whole-row kernel keeps no score row: its bytes
+    do not grow with N and it has no limit); the query tiles cover the N
+    rows once and the key tiles the N keys once, each key tile as narrow
+    as its keys allow."""
+    kernel, rows = PLAN_ROUTES[route]
+    limit = pa.max_n(kernel, rows)
+    p = pa.plan(n, kernel, rows, slices=3)
+    if limit is None:
+        assert p.smem_bytes == pa.plan(1, kernel, rows).smem_bytes
+        assert p.smem_bytes <= pa.SMEM_LIMIT
+    else:
+        assert (p.smem_bytes <= pa.SMEM_LIMIT) == (n <= limit)
+        assert pa.plan(limit, kernel, rows).smem_bytes <= pa.SMEM_LIMIT
+        assert pa.plan(limit + 1, kernel, rows).smem_bytes > pa.SMEM_LIMIT
+    height = rows if kernel == "rows" else pa.QUERY_ROWS
+    assert [first for first, _ in p.rows] == list(range(0, n, height))
+    assert sum(live for _, live in p.rows) == n
+    assert all(0 < live <= height for _, live in p.rows)
+    assert [first for first, _ in p.cols] == list(range(0, n, pa.KEYS))
+    step = 16 if kernel == "nostage" else 8
+    widths = [w for _, w in p.cols]
+    assert all(w == pa.KEYS for w in widths[:-1])
+    assert n <= sum(widths) < n + step and widths[-1] % step == 0
+    assert p.grid == 3 * (1 if kernel == "scratch" else len(p.rows))
+    assert p.passes == (1 if kernel == "nostage" else 2)
+
+
+def test_probe_plan_at_the_probes_shape():
+    """The figures csrc/probe_attention.cu's note gives at N = 257 and the
+    limits the wrappers hold the kernels to."""
+    assert pa.SCRATCH_MAX_N == 832 and pa.max_n("nostage") == 896
+    assert pa.max_n("rows") is None and pa.max_n("rows", 128) is None
+    rows = pa.plan(257, "rows", 64, slices=1024)
+    assert (rows.warpgroups, rows.grid, rows.smem_bytes) == (1, 5120, 42_024)
+    assert rows.cols[-1] == (256, 8) and rows.rows[-1] == (256, 1)
+    assert rows.scores == 2 * 5 * 64 * 264
+    assert pa.plan(257, "rows", mode="dotsonly").scores == 5 * 64 * 264
+    wide = pa.plan(257, "rows", 128, slices=1024)
+    assert (wide.warpgroups, wide.grid, wide.smem_bytes) == (2, 3072, 50_216)
+    p3 = pa.plan(257, "scratch", slices=1024)
+    assert (p3.warpgroups, p3.grid, p3.smem_bytes) == (2, 1024, 103_464)
+    assert pa.plan(768, "scratch").warpgroups == 2
+    assert pa.plan(769, "scratch").warpgroups == 1
+    assert pa.plan(257, "nostage").smem_bytes == 69_632
+    with pytest.raises(ValueError):
+        pa.plan(257, "rows", 32)
+    with pytest.raises(ValueError):
+        pa.plan(257, "packed")
+    with pytest.raises(ValueError):
+        pa.plan(257, mode="nodots")
