@@ -434,8 +434,9 @@ def ln_linear_row(dev, gen):
     image [16*257, 1024] and ragged text [16*77, 768] rows, recorded, with
     the gradient of every input through torch.autograd.grad (the plain
     backward) against autograd of the plain version in f32. Each forward
-    must launch K5 once. Timed at the eval image shape, against F.layer_norm
-    + F.linear."""
+    must launch K5 once. Timed at the eval image shape through `yardstick`
+    against F.layer_norm + F.linear, with kernels/ln_linear.py::plan's
+    grid, tiles, cluster, stages and shared memory."""
     from missm_tpu_torch.kernels import attention as K
     from missm_tpu_torch.kernels import ln_linear as lnl
 
@@ -512,15 +513,22 @@ def ln_linear_row(dev, gen):
     x, ln, lin = ln_inputs(dev, gen, m, d, f, torch.bfloat16, True)
     row["ms"] = median_ms(lambda: lnl.ln_linear(x, ln, lin))
     row["plain_ms"] = median_ms(lambda: lnl.ln_linear_plain(x, ln, lin))
-    row["library_ms"] = median_ms(lambda: torch.nn.functional.linear(
-        torch.nn.functional.layer_norm(x, (d,), ln["scale"], ln["bias"]),
-        lin["w"].t(), lin["b"]))
     row["bound_ms"], row["bound_by"] = bound((m * d + d * f + m * f + 2 * d + f)
                                              * 2, 2 * m * d * f)
-    print(f"kernel ln_linear [{row['shape']}]: bf16 kernel {row['ms']:.4f} ms, "
-          f"plain {row['plain_ms']:.4f} ms, F.layer_norm + F.linear "
-          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']})", flush=True)
+    p = lnl.plan(m, d, f)
+    row["plan"] = {"grid": p.grid, "row_tile": lnl.ROWS, "col_tile": p.bn,
+                   "cluster": p.groups, "col_tiles_per_block":
+                   len(p.col_tiles(0)), "stages": p.stages,
+                   "smem_bytes": p.smem_bytes}
+    print(f"  plan ln_linear: {p.grid} blocks in clusters of {p.groups}, "
+          f"row tiles of {lnl.ROWS}, {len(p.col_tiles(0))} column tiles of "
+          f"{p.bn} a block, {p.stages} stages, {p.smem_bytes} bytes of shared "
+          f"memory", flush=True)
+    yardstick(row, lambda: lnl.ln_linear(x, ln, lin),
+              lambda: torch.nn.functional.linear(
+                  torch.nn.functional.layer_norm(x, (d,), ln["scale"],
+                                                 ln["bias"]),
+                  lin["w"].t(), lin["b"]), "F.layer_norm + F.linear")
     return row
 
 
@@ -535,8 +543,10 @@ def mlp_inputs(dev, gen, m, d, ff, dtype):
 def mlp_bwd_row(dev, gen):
     """K6 through its wrapper at the probe's shape [16448, 1024, 4096]
     against its plain version in f32 and bf16 (one launch each), timed in
-    bf16 against the library chain: cuBLAS writing dwide in f32, the
-    derivative, cuBLAS again."""
+    bf16 through `yardstick` against the library chain (cuBLAS writing
+    dwide in f32, the derivative, cuBLAS again), with the device time of
+    the chain's two products alone beside it and kernels/mlp_bwd.py::plan's
+    grid, cluster, waves, stages and shared memory."""
     from missm_tpu_torch.kernels import attention as K
     from missm_tpu_torch.kernels import mlp_bwd
     from missm_tpu_torch.ops.basic import matmul_f32
@@ -578,16 +588,41 @@ def mlp_bwd_row(dev, gen):
         dwide = dwide * mlp_bwd.quick_gelu_grad(wide.float())
         return torch.mm(dwide.to(dy.dtype), w1.t())
 
+    dwide_bf16 = (matmul_f32(dy, w2.t())
+                  * mlp_bwd.quick_gelu_grad(wide.float())).to(dy.dtype)
+
+    def products():
+        # the chain's two products alone: what the kernel's GEMM half does
+        return matmul_f32(dy, w2.t()), torch.mm(dwide_bf16, w1.t())
+
     row["ms"] = median_ms(lambda: mlp_bwd.mlp_bwd_dx(dy, wide, w1, w2))
     row["plain_ms"] = median_ms(lambda: mlp_bwd.mlp_bwd_dx_plain(dy, wide,
                                                                  w1, w2))
-    row["library_ms"] = median_ms(library)
     row["bound_ms"], row["bound_by"] = bound(
         (2 * m * d + m * ff + 2 * d * ff) * 2, 4 * m * d * ff)
-    print(f"kernel mlp_bwd_dx [{row['shape']}]: bf16 kernel {row['ms']:.4f} ms, "
-          f"plain {row['plain_ms']:.4f} ms, cuBLAS chain "
-          f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']})", flush=True)
+    p = mlp_bwd.plan(m, d, ff)
+    row["plan"] = {"grid": p.grid, "tile": [p.rows, p.cluster],
+                   "cluster": p.cluster, "out_cols_per_block": p.nout,
+                   "ff_steps": p.steps, "waves": p.waves, "stages": p.stages,
+                   "smem_bytes": p.smem_bytes}
+    print(f"  plan mlp_bwd_dx: {p.grid} blocks in clusters of {p.cluster} "
+          f"on {p.rows} rows, {p.nout} output columns a block, {p.steps} FF "
+          f"steps of {p.cluster * mlp_bwd.DEPTH}, {p.waves} waves, "
+          f"{p.stages} stages, {p.smem_bytes} bytes of shared memory",
+          flush=True)
+    yardstick(row, lambda: mlp_bwd.mlp_bwd_dx(dy, wide, w1, w2), library,
+              "cuBLAS chain")
+    row["chain_products_device_ms"] = {k[:80]: t for k, t in
+                                       device_profile(products)}
+    total = sum(row["chain_products_device_ms"].values())
+    row["device_vs_chain_products"] = (sum(row["device_ms"].values())
+                                       / total)
+    print(f"  device ms a call of the chain's two products alone: "
+          f"{total:.4f} "
+          f"{[(k[:48], round(t, 4)) for k, t in row['chain_products_device_ms'].items()]}"
+          f"; kernel/products {row['device_vs_chain_products']:.3f}",
+          flush=True)
+    del dwide_bf16
     return row
 
 
@@ -1760,7 +1795,7 @@ def main() -> int:
                 for i in range(len(entries) - 1)
                 if any(k in entries[i] for k in (
                     "bf16ILi64E", "bfloat16Li64ELi8E", "ln_linear_bf16",
-                    "mlp_bwd_dx_bf16ILi32ELi32ELi1024E",
+                    "mlp_bwd_dx_bf16ILi128E",
                     "rows_bf16ILi1ELi0ELb0E", "scratch_bf16ILi2E",
                     "nostage_bf16"))]
         print(f"build csrc/{src}.cu: {seconds:.1f} s; the main path's bf16 "

@@ -17,34 +17,57 @@
 //
 // The design problem: a block's output rows need every FF chunk of dwide, and
 // each dwide tile needs the whole D of dy, so the TPU kernel carried an f32
-// [bm, D] accumulator across its FF loop in VMEM (256 rows x 1024 = 1 MB).
-// Here 64 rows of it at D = 1024 are already 256 KB, more than a block's 227
-// KB of shared memory. The options were (1) fewer rows per block, (2) D split
-// across blocks, each recomputing the [bm, bf] dwide tile (the first product
-// once per split: 1.5x the FLOP at two splits, 2.5x at four), or (3) FF
-// split across blocks with a second pass that sums the f32 partials in a
-// fixed order. (2) pays in FLOP and (3) in device memory, the round trip the
-// kernel exists to avoid, and neither shrinks a block's accumulator. So this
-// kernel takes (1): a block owns BM = 32 rows and all of D, its accumulator
-// lives in registers (8 warps, each owning D / 8 columns: 32 x 128 f32 = 128
-// registers a thread at D = 1024), and nothing crosses blocks (no atomics,
-// deterministic). What it pays: every block streams all of W1 and W2 once
-// (16 MB at D = 1024, FF = 4096), mostly from L2, for only 32 rows.
+// [bm, D] accumulator across its FF loop in VMEM. On this card wgmma takes 64
+// rows, and 64 rows of f32 at D = 1024 are 256 KB, the whole register file of
+// an SM. The first design (4.68-4.70 ms, 6 % of the bound, 1.9x the cuBLAS
+// chain) fell back to blocks of 32 rows on mma.sync with synchronous tile
+// loads: every one of its 514 blocks streamed all of W1 and W2 (16.8 MB), 8.6
+// GB from L2.
 //
-// Per FF chunk of BF columns (a first, simple kernel: no wgmma, TMA or
-// cp.async pipelining):
-//  1. W2[f0:f0+BF, :] and W1[:, f0:f0+BF] into shared memory (dy's BM rows
-//     were loaded once, before the loop);
-//  2. the [BM, BF] f32 dwide tile on mma.sync m16n8k16: each warp takes one
-//     16 x 8 tile over its share of D (the tiles split D between warps when
-//     there are fewer than 8 of them), four accumulators in turn;
-//  3. the partial tiles summed in a fixed order, times qg'(wide) in f32,
-//     rounded to bf16 into shared memory: dwide never leaves the chip;
-//  4. each warp adds dwide . W1[its columns, chunk]^T to its accumulator.
-// Both products read B fragments as contiguous pairs: W2's rows hold D and
-// W1's rows hold FF, which are the K index of each product. Rows past M are
-// zero in dy and dwide and are not stored. (BM, BF) is a template choice
-// (32 x 32 by default; 16 and 32 each at D = 1024 for the probe's sweep).
+// The bf16 kernel now splits D across a thread block cluster instead: a
+// cluster of C blocks owns R = 128 rows, and block c owns the D / C output
+// columns [c D / C, (c + 1) D / C) (NOUT = 128 or 256, wgmma's N). A block has
+// two consumer warpgroups (64 rows each, NOUT / 2 f32 accumulators a thread)
+// and a producer warpgroup whose one thread feeds a ring of stages by TMA
+// (128B swizzle, zero rows past M), its registers handed to the consumers
+// (setmaxnreg). Each FF step of C * 64 columns:
+//  1. block c computes its own [128, 64] chunk of dwide, dy . W2[chunk]^T over
+//     the whole D (wgmma m64n64k16, dy and W2 K-major as stored, a stage each
+//     64 of D);
+//  2. multiplies it by qg'(wide) in f32, the wide tile read by TMA and from
+//     shared memory at the accumulator's own positions, and rounds it once;
+//  3. writes it, swizzled as wgmma's A, into its own slot of its dwide step
+//     buffer [128, C * 64], and copies each warpgroup's 64 rows into the same
+//     slot of every other block of the cluster (a bulk copy to distributed
+//     shared memory that completes on the peer's barrier);
+//  4. once the C slots have landed, adds dwide . W1[own columns, step]^T to
+//     its accumulator (wgmma m64nNOUTk16, W1 K-major as stored, a stage a
+//     64-column chunk), and tells every block that its warpgroup has read the
+//     step, so that the next step may overwrite it.
+// Nothing is computed twice, dwide never leaves the cluster, and there are no
+// atomics: the result is the same on every run. The dwide buffer is single:
+// a block writes step s + 1 only after every block's warpgroup has read step
+// s, which it has by the time its own step s + 1 chunk is ready. Per cluster,
+// W1 and W2 are read once for 128 rows (2.2 GB from L2 at the probe's shape
+// against 8.6 GB); dy's rows are read by each block of the cluster once a
+// step. The cluster ends with a barrier, so that no block leaves while a peer
+// may still write to it. `tile` = (R, C): (128, C) with D / C in {128, 256};
+// kernels/mlp_bwd.py::plan gives the grid, cluster, waves, stages and shared
+// memory. The default is C = D / 128: at D = 1024 clusters of 8, 15 of them
+// at a time on the card (a cluster stays within a GPC), 9 waves. With 256
+// output columns a block (C = D / 256) each consumer thread holds 128
+// accumulators beside step 1's 32, and ptxas, which allocates this kernel
+// at most 168 registers a thread in spite of setmaxnreg, spills them: that
+// tile is built for the probe's sweep and is 2x slower.
+//
+// What bounds it now (PERF.md section 6, PR 9): not the tensor cores (about
+// 16 % of their peak) and not L2 (about 4 GB a call at 2.5 TB/s) but the
+// latency of step 1: its stages are small products (64 columns, 1 MFLOP)
+// on 24 KB each, three stages fit beside the 128 KB dwide buffer at C = 8,
+// and each step waits for the cluster's exchange before step 4. Measured
+// and dropped, no faster in one call on the card: L2 eviction hints on the
+// loads; the cluster barrier waits at CTA scope; dwide staged in registers
+// before the write.
 //
 // f32: CUDA cores, 8 rows and 16 FF columns per step, full f32 FMAs.
 
@@ -53,28 +76,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
+using namespace hopper;
+
 constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+constexpr int kThreads = kWarps * 32;  // the f32 kernel
 
 // g * quick_gelu'(x), in f32.
 __device__ __forceinline__ float times_qgelu_grad(float g, float x) {
@@ -82,180 +91,240 @@ __device__ __forceinline__ float times_qgelu_grad(float g, float x) {
   return g * (s * (1.f + 1.702f * x * (1.f - s)));
 }
 
-// A-fragment of rows [row, row + 16), columns [k, k + 16) of a row-major
-// bf16 tile with row pitch ld.
-__device__ __forceinline__ void load_a(uint32_t a[4], const __nv_bfloat16* base,
-                                       int ld, int g, int t) {
-  const __nv_bfloat16* r0 = base + g * ld + 2 * t;
-  a[0] = ld_pair(r0);
-  a[1] = ld_pair(r0 + 8 * ld);
-  a[2] = ld_pair(r0 + 8);
-  a[3] = ld_pair(r0 + 8 * ld + 8);
+// ---------------------------------------------------------------------------
+// bf16: a cluster of blocks on wgmma, TMA ring, dwide in distributed shared
+// memory
+// ---------------------------------------------------------------------------
+
+constexpr int kRows = 128;        // R: rows a cluster owns
+constexpr int kBK = 64;           // depth of a stage, columns of a dwide chunk
+constexpr int kBf16Threads = 384; // two consumer warpgroups and a producer
+constexpr int kMaxStages = 4;
+constexpr int kSmemLimit = 232448;
+constexpr int kChunk = kRows * kBK * 2;  // a [128, 64] bf16 tile: 16 KB
+
+// A stage holds a dy tile [128, 64] and a W2 tile [64, 64] (step 1) or a W1
+// tile [NOUT, 64] (step 4).
+__host__ __device__ constexpr int stage_bytes(int nout) {
+  return nout * kBK * 2 > kChunk + 64 * kBK * 2 ? nout * kBK * 2
+                                                 : kChunk + 64 * kBK * 2;
+}
+// The dwide step buffer, the wide tile, the ring, and the barriers (a full
+// and an empty one a stage, the wide tile's two, and each consumer
+// warpgroup's two for the dwide step), 1024-aligned.
+constexpr int smem_bytes(int cluster, int nout, int stages) {
+  return 1024 + cluster * kChunk + kChunk + stages * stage_bytes(nout) +
+         8 * (2 * stages + 2 + 4);
+}
+int stages_for(int cluster, int nout) {
+  int s = kMaxStages;
+  while (s >= 2 && smem_bytes(cluster, nout, s) > kSmemLimit) --s;
+  return s;
 }
 
-// Shared-memory layout of the bf16 kernel, in bytes.
-template <int BM, int BF, int D>
-struct Layout {
-  static constexpr int kLdD = D + 8;   // dy and W2 rows: fragment loads on 32 banks
-  static constexpr int kLdF = BF + 8;  // W1 rows and dwide rows, the same
-  static constexpr int kTiles = (BM / 16) * (BF / 8);  // 16 x 8 dwide tiles
-  static constexpr int kSplit = kWarps / kTiles;       // warps sharing a tile's D
-  static constexpr size_t kDy = 0;
-  static constexpr size_t kW2 = kDy + (size_t)BM * kLdD * 2;
-  static constexpr size_t kW1 = kW2 + (size_t)BF * kLdD * 2;
-  static constexpr size_t kDw = kW1 + (size_t)D * kLdF * 2;
-  static constexpr size_t kRed = kDw + (size_t)BM * kLdF * 2;
-  static constexpr size_t kBytes = kRed + (size_t)kSplit * BM * BF * 4;
-  static_assert(kTiles * kSplit == kWarps, "tiles must divide the warps");
-  static_assert((D / 16) % kSplit == 0, "D must split evenly");
-  static_assert(kBytes <= 232448, "more than a block's shared memory");
-};
+template <int NOUT>
+__global__ void __launch_bounds__(kBf16Threads, 1)
+mlp_bwd_dx_bf16(const __grid_constant__ CUtensorMap tdy,
+                const __grid_constant__ CUtensorMap twide,
+                const __grid_constant__ CUtensorMap tw1,
+                const __grid_constant__ CUtensorMap tw2,
+                __nv_bfloat16* __restrict__ out, int m, int d, int ff,
+                int cluster, int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_smem(smem_raw);
+  uint8_t* dwide = smem;                        // cluster x [128, 64]
+  uint8_t* wide_s = dwide + cluster * kChunk;   // [128, 64]
+  uint8_t* ring = wide_s + kChunk;
+  constexpr int kStage = stage_bytes(NOUT);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * kStage);
+  uint64_t* empty = full + stages;
+  uint64_t* wide_full = empty + stages;
+  uint64_t* wide_empty = wide_full + 1;
+  uint64_t* dw_full = wide_empty + 1;   // [2]: a consumer warpgroup each
+  uint64_t* dw_empty = dw_full + 2;     // [2]
 
-template <int BM, int BF, int D>
-__global__ void __launch_bounds__(kThreads, 1)
-mlp_bwd_dx_bf16(const __nv_bfloat16* __restrict__ dy,
-                const __nv_bfloat16* __restrict__ wide,
-                const __nv_bfloat16* __restrict__ w1,
-                const __nv_bfloat16* __restrict__ w2,
-                __nv_bfloat16* __restrict__ out, int m, int ff) {
-  using L = Layout<BM, BF, D>;
-  constexpr int MT = BM / 16;     // 16-row tiles
-  constexpr int NT = D / 64;      // 8-column output tiles per warp (D / 8 columns)
-  constexpr int kSteps = D / 16 / L::kSplit;  // first-product k-steps per warp
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* dys = reinterpret_cast<__nv_bfloat16*>(smem + L::kDy);
-  __nv_bfloat16* w2s = reinterpret_cast<__nv_bfloat16*>(smem + L::kW2);
-  __nv_bfloat16* w1s = reinterpret_cast<__nv_bfloat16*>(smem + L::kW1);
-  __nv_bfloat16* dws = reinterpret_cast<__nv_bfloat16*>(smem + L::kDw);
-  float* red = reinterpret_cast<float*>(smem + L::kRed);
-
-  const int m0 = blockIdx.x * BM;
+  const uint32_t rank = cluster_rank();
+  const int m0 = (blockIdx.x / cluster) * kRows;
+  const int d0 = (int)rank * NOUT;
+  const int step_cols = cluster * kBK;
+  const int steps = ff / step_cols;
+  const int ksteps = d / kBK;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 2);
+    }
+    mbar_init(wide_full, 1);
+    mbar_init(wide_empty, 256);  // every consumer thread
+    for (int w = 0; w < 2; ++w) {
+      mbar_init(dw_full + w, 1);
+      mbar_init(dw_empty + w, cluster);  // that warpgroup of every block
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  cluster_sync();  // every block's barriers exist before any peer uses them
+
+  if (warp >= 8) {
+    // producer warpgroup: one thread streams, per step, the wide tile, D / 64
+    // (dy, W2) stages and C W1 stages
+    regs_dealloc<40>();
+    if (threadIdx.x == 256) {
+      int it = 0;
+      auto next = [&](uint32_t bytes) {
+        const int s = it % stages;
+        if (it >= stages) mbar_wait(empty + s, (it / stages - 1) & 1);
+        mbar_expect(full + s, bytes);
+        ++it;
+        return s;
+      };
+      for (int step = 0; step < steps; ++step) {
+        const int f0 = step * step_cols + (int)rank * kBK;
+        if (step > 0) mbar_wait(wide_empty, (step - 1) & 1);
+        mbar_expect(wide_full, kChunk);
+        tma_load(wide_s, &twide, wide_full, f0, m0, 0);
+        for (int kt = 0; kt < ksteps; ++kt) {
+          const int s = next(kChunk + 64 * kBK * 2);
+          tma_load(ring + s * kStage, &tdy, full + s, kt * kBK, m0, 0);
+          tma_load(ring + s * kStage + kChunk, &tw2, full + s, kt * kBK, f0, 0);
+        }
+        for (int q = 0; q < cluster; ++q) {
+          const int s = next(NOUT * kBK * 2);
+          tma_load(ring + s * kStage, &tw1, full + s, step * step_cols + q * kBK,
+                   d0, 0);
+        }
+      }
+    }
+    __syncwarp();
+    cluster_sync();
+    return;
+  }
+
+  regs_alloc<232>();
+  const int wg = warp >> 2;
   const int t = lane & 3;
-  const int d0 = warp * (D / 8);  // this warp's output columns
-  const int tile = warp % L::kTiles;
-  const int part = warp / L::kTiles;  // which share of D for the dwide tile
-  const int tm = tile / (BF / 8);
-  const int tn = tile % (BF / 8);
-
-  // dy's BM rows, once; rows past m are zero
-  for (int c = threadIdx.x; c < BM * D / 8; c += kThreads) {
-    const int r = c / (D / 8);
-    const int col = (c % (D / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (m0 + r < m) v = *reinterpret_cast<const uint4*>(dy + (size_t)(m0 + r) * D + col);
-    *reinterpret_cast<uint4*>(dys + r * L::kLdD + col) = v;
-  }
-
-  float acc[MT][NT][4];
+  const int r0 = wg * 64 + (warp & 3) * 16 + (lane >> 2);  // rows r0, r0 + 8
+  const bool leader = (warp & 3) == 0 && lane == 0;
+  const uint32_t ring_u = smem_u32(ring);
+  const uint32_t dwide_u = smem_u32(dwide);
+  float acc[NOUT / 2];
+  int it = 0;
+  for (int step = 0; step < steps; ++step) {
+    // 1. this block's dwide chunk, dy . W2[chunk]^T over the whole D
+    float p[32];
+    for (int kt = 0; kt < ksteps; ++kt, ++it) {
+      const int s = it % stages;
+      mbar_wait(full + s, (it / stages) & 1);
+      const uint32_t st = ring_u + s * kStage;
+      fence_regs<32>(p);
+      wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  for (int f0 = 0; f0 < ff; f0 += BF) {
-    __syncthreads();  // dy is in; everyone is done with the last chunk
-    for (int c = threadIdx.x; c < BF * D / 8; c += kThreads) {
-      const int r = c / (D / 8);
-      const int col = (c % (D / 8)) * 8;
-      *reinterpret_cast<uint4*>(w2s + r * L::kLdD + col) =
-          *reinterpret_cast<const uint4*>(w2 + (size_t)(f0 + r) * D + col);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<64>(p, kmajor128(st + wg * 64 * 128, kk),
+                     kmajor128(st + kChunk, kk), kt > 0 || kk > 0);
+      wgmma_commit();
+      // this stage's products stay in flight; the last stage's are done
+      wgmma_wait_n<1>();
+      if (kt > 0 && leader) mbar_arrive(empty + (it - 1) % stages);
     }
-    for (int c = threadIdx.x; c < D * BF / 8; c += kThreads) {
-      const int r = c / (BF / 8);
-      const int col = (c % (BF / 8)) * 8;
-      *reinterpret_cast<uint4*>(w1s + r * L::kLdF + col) =
-          *reinterpret_cast<const uint4*>(w1 + (size_t)r * ff + f0 + col);
-    }
-    __syncthreads();
-
-    // this warp's 16 x 8 dwide tile over its share of D
-    {
-      float c4[4][4];
+    wgmma_wait();
+    fence_regs<32>(p);
+    if (leader) mbar_arrive(empty + (it - 1) % stages);
+    // 2. times qg'(wide), rounded once, into this block's slot (once every
+    // block's warpgroup has read the last step)
+    mbar_wait(wide_full, step & 1);
+    if (step > 0) mbar_wait_cluster(dw_empty + wg, (step - 1) & 1);
+    uint8_t* slot = dwide + rank * kChunk;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) c4[i][0] = c4[i][1] = c4[i][2] = c4[i][3] = 0.f;
-      const __nv_bfloat16* ar = dys + tm * 16 * L::kLdD;
-      const __nv_bfloat16* br = w2s + (tn * 8 + g) * L::kLdD + 2 * t;
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int s = 0; s < kSteps; ++s) {
-        const int k = (part * kSteps + s) * 16;
-        uint32_t a[4];
-        load_a(a, ar + k, L::kLdD, g, t);
-        mma_bf16(c4[s & 3], a, ld_pair(br + k), ld_pair(br + k + 8));
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t off = swz128(r0 + 8 * h, j) + 4 * t;
+        const uint32_t x = *reinterpret_cast<const uint32_t*>(wide_s + off);
+        *reinterpret_cast<uint32_t*>(slot + off) = pack_bf16(
+            times_qgelu_grad(p[4 * j + 2 * h], __uint_as_float(x << 16)),
+            times_qgelu_grad(p[4 * j + 2 * h + 1],
+                             __uint_as_float(x & 0xffff0000u)));
       }
-      float* rp = red + part * BM * BF + (tm * 16 + g) * BF + tn * 8 + 2 * t;
-      rp[0] = (c4[0][0] + c4[1][0]) + (c4[2][0] + c4[3][0]);
-      rp[1] = (c4[0][1] + c4[1][1]) + (c4[2][1] + c4[3][1]);
-      rp[8 * BF] = (c4[0][2] + c4[1][2]) + (c4[2][2] + c4[3][2]);
-      rp[8 * BF + 1] = (c4[0][3] + c4[1][3]) + (c4[2][3] + c4[3][3]);
+    mbar_arrive(wide_empty);
+    // 3. then into the same slot of every peer
+    fence_async_smem();
+    bar_sync(1 + wg, 128);
+    if (leader) {
+      mbar_expect(dw_full + wg, (cluster - 1) * kChunk / 2);
+      for (int q = 0; q < cluster; ++q)
+        if (q != (int)rank)
+          copy_to_peer(slot + wg * kChunk / 2, kChunk / 2, dw_full + wg, q);
     }
-    __syncthreads();
-
-    // dwide = (sum of the parts) * qg'(wide), rounded once to bf16
-    for (int i = threadIdx.x; i < BM * BF; i += kThreads) {
-      const int r = i / BF;
-      const int c = i % BF;
-      float v = 0.f;
-      if (m0 + r < m) {
+    mbar_wait(dw_full + wg, step & 1);
+    // 4. acc += dwide step . W1[own columns, step]^T
+    for (int q = 0; q < cluster; ++q, ++it) {
+      const int s = it % stages;
+      mbar_wait(full + s, (it / stages) & 1);
+      const uint32_t st = ring_u + s * kStage;
+      const uint32_t a = dwide_u + q * kChunk + wg * kChunk / 2;
+      fence_regs<NOUT / 2>(acc);
+      wgmma_fence();
 #pragma unroll
-        for (int p = 0; p < L::kSplit; ++p) v += red[p * BM * BF + i];
-        v = times_qgelu_grad(
-            v, __bfloat162float(wide[(size_t)(m0 + r) * ff + f0 + c]));
-      }
-      dws[r * L::kLdF + c] = __float2bfloat16(v);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<NOUT>(acc, kmajor128(a, kk), kmajor128(st, kk),
+                       step > 0 || q > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait_n<1>();
+      if (q > 0 && leader) mbar_arrive(empty + (it - 1) % stages);
     }
-    __syncthreads();
-
-    // acc[:, d0 : d0 + D / 8] += dwide . W1[d0 : d0 + D / 8, chunk]^T
-#pragma unroll
-    for (int ks = 0; ks < BF / 16; ++ks) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        load_a(a[mt], dws + mt * 16 * L::kLdF + ks * 16, L::kLdF, g, t);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const __nv_bfloat16* br = w1s + (d0 + nt * 8 + g) * L::kLdF + ks * 16 + 2 * t;
-        const uint32_t b0 = ld_pair(br);
-        const uint32_t b1 = ld_pair(br + 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], a[mt], b0, b1);
-      }
-    }
+    wgmma_wait();
+    fence_regs<NOUT / 2>(acc);
+    if (leader) mbar_arrive(empty + (it - 1) % stages);
+    if (leader)
+      for (int q = 0; q < cluster; ++q) mbar_arrive_cluster(dw_empty + wg, q);
   }
 
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const int row = m0 + mt * 16 + g;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int col = d0 + nt * 8 + 2 * t;
-      if (row < m)
-        *reinterpret_cast<uint32_t*>(out + (size_t)row * D + col) =
-            pack_bf16(acc[mt][nt][0], acc[mt][nt][1]);
-      if (row + 8 < m)
-        *reinterpret_cast<uint32_t*>(out + (size_t)(row + 8) * D + col) =
-            pack_bf16(acc[mt][nt][2], acc[mt][nt][3]);
-    }
+  for (int j = 0; j < NOUT / 8; ++j) {
+    const int col = d0 + 8 * j + 2 * t;
+    const int row = m0 + r0;
+    if (row < m)
+      *reinterpret_cast<uint32_t*>(out + (size_t)row * d + col) =
+          pack_bf16(acc[4 * j], acc[4 * j + 1]);
+    if (row + 8 < m)
+      *reinterpret_cast<uint32_t*>(out + (size_t)(row + 8) * d + col) =
+          pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
   }
+  cluster_sync();  // no block leaves while a peer may still write to it
 }
 
-template <int BM, int BF, int D>
-int launch_bf16(const void* dy, const void* wide, const void* w1, const void* w2,
-                void* out, int m, int ff, cudaStream_t stream) {
-  using L = Layout<BM, BF, D>;
-  if (ff % BF) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = mlp_bwd_dx_bf16<BM, BF, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<(m + BM - 1) / BM, kThreads, L::kBytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(dy), static_cast<const __nv_bfloat16*>(wide),
-      static_cast<const __nv_bfloat16*>(w1), static_cast<const __nv_bfloat16*>(w2),
-      static_cast<__nv_bfloat16*>(out), m, ff);
-  return static_cast<int>(cudaGetLastError());
+template <int NOUT>
+int launch_bf16(const void* dy, const void* wide, const void* w1,
+                const void* w2, void* out, int m, int d, int ff, int cluster,
+                cudaStream_t stream) {
+  const int stages = stages_for(cluster, NOUT);
+  if (stages < 2 || ff % (cluster * kBK)) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tdy, twide, tw1, tw2;
+  int rc = encode_rows(&tdy, dy, 1, m, d, kRows, kBK);
+  if (!rc) rc = encode_rows(&twide, wide, 1, m, ff, kRows, kBK);
+  if (!rc) rc = encode_rows(&tw1, w1, 1, d, ff, NOUT, kBK);
+  if (!rc) rc = encode_rows(&tw2, w2, 1, ff, d, 64, kBK);
+  auto kernel = mlp_bwd_dx_bf16<NOUT>;
+  static unsigned long long attr_set = 0;
+  if (!rc) rc = allow_smem(kernel, kSmemLimit, attr_set);
+  if (rc) return rc;
+  return launch_cluster(kernel, (m + kRows - 1) / kRows * cluster,
+                        kBf16Threads, smem_bytes(cluster, NOUT, stages), stream,
+                        cluster, tdy, twide, tw1, tw2,
+                        static_cast<__nv_bfloat16*>(out), m, d, ff, cluster,
+                        stages);
+}
+
+// The output columns a block owns at width d in clusters of `cluster`
+// blocks: 128 or 256, else 0 (not built).
+int nout_for(int d, int cluster) {
+  if (cluster < 1 || cluster > 8 || d % cluster) return 0;
+  const int n = d / cluster;
+  return n == 128 || n == 256 ? n : 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -361,11 +430,13 @@ int launch_f32(const void* dy, const void* wide, const void* w1, const void* w2,
 }  // namespace
 
 // dy [m, d], wide [m, ff], w1 [d, ff], w2 [ff, d] and out [m, d]: contiguous,
-// 16-byte aligned, all bf16 (is_bf16 = 1) or all f32; d one of 128, 256,
-// 512, 768, 1024. bf16 takes the tile (bm, bf) = (32, 32) at every d, and
-// (16, 32), (32, 16) and (16, 16) at d = 1024; ff a multiple of bf (of 16 for
-// f32, which ignores bm and bf). Launches on `stream` and returns
-// cudaGetLastError() (cudaErrorInvalidValue for what it was not built for).
+// 16-byte aligned, all bf16 (is_bf16 = 1) or all f32. bf16 takes the tile
+// (bm, bf) = (rows, cluster) = (128, C) with d / C 128 or 256 and ff a
+// multiple of 64 C; f32 (which ignores bm and bf) d one of 128, 256, 512,
+// 768, 1024 and ff a multiple of 16. Launches on `stream` and returns the
+// first error: of the tensor maps, the shared-memory attribute or the launch
+// (bf16), else cudaGetLastError() (cudaErrorInvalidValue for what it was not
+// built for).
 extern "C" int missm_mlp_bwd_dx(const void* dy, const void* wide, const void* w1,
                                 const void* w2, void* out, int m, int d, int ff,
                                 int is_bf16, int bm, int bf, void* stream) {
@@ -376,16 +447,33 @@ extern "C" int missm_mlp_bwd_dx(const void* dy, const void* wide, const void* w1
       return static_cast<int>(cudaErrorInvalidValue);
     return launch_f32(dy, wide, w1, w2, out, m, d, ff, s);
   }
-  const int key = d * 10000 + bm * 100 + bf;
-  switch (key) {
-    case 128 * 10000 + 3232: return launch_bf16<32, 32, 128>(dy, wide, w1, w2, out, m, ff, s);
-    case 256 * 10000 + 3232: return launch_bf16<32, 32, 256>(dy, wide, w1, w2, out, m, ff, s);
-    case 512 * 10000 + 3232: return launch_bf16<32, 32, 512>(dy, wide, w1, w2, out, m, ff, s);
-    case 768 * 10000 + 3232: return launch_bf16<32, 32, 768>(dy, wide, w1, w2, out, m, ff, s);
-    case 1024 * 10000 + 3232: return launch_bf16<32, 32, 1024>(dy, wide, w1, w2, out, m, ff, s);
-    case 1024 * 10000 + 1632: return launch_bf16<16, 32, 1024>(dy, wide, w1, w2, out, m, ff, s);
-    case 1024 * 10000 + 3216: return launch_bf16<32, 16, 1024>(dy, wide, w1, w2, out, m, ff, s);
-    case 1024 * 10000 + 1616: return launch_bf16<16, 16, 1024>(dy, wide, w1, w2, out, m, ff, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int nout = bm == kRows ? nout_for(d, bf) : 0;
+  int rc;
+  if (nout == 256)
+    rc = launch_bf16<256>(dy, wide, w1, w2, out, m, d, ff, bf, s);
+  else if (nout == 128)
+    rc = launch_bf16<128>(dy, wide, w1, w2, out, m, d, ff, bf, s);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return rc ? rc : static_cast<int>(cudaGetLastError());
+}
+
+// The dynamic shared memory of the bf16 launch at width d with the tile
+// (rows, cluster), 0 for a tile it was not built for or that does not fit:
+// what kernels/mlp_bwd.py::plan says.
+extern "C" int missm_mlp_bwd_smem(int d, int rows, int cluster) {
+  const int nout = rows == kRows ? nout_for(d, cluster) : 0;
+  if (!nout) return 0;
+  const int stages = stages_for(cluster, nout);
+  return stages >= 2 ? smem_bytes(cluster, nout, stages) : 0;
+}
+
+// How many clusters of `cluster` blocks of the bf16 kernel with NOUT = nout
+// (128 or 256) and `smem` bytes the card runs at once: what
+// kernels/mlp_bwd.py::ACTIVE_CLUSTERS says for an H100.
+extern "C" int missm_mlp_bwd_active_clusters(int nout, int cluster, int smem) {
+  if (nout != 128 && nout != 256) return -static_cast<int>(cudaErrorInvalidValue);
+  return nout == 256
+             ? active_clusters(mlp_bwd_dx_bf16<256>, kBf16Threads, smem, cluster)
+             : active_clusters(mlp_bwd_dx_bf16<128>, kBf16Threads, smem, cluster);
 }

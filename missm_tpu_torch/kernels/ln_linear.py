@@ -10,9 +10,10 @@ _ln_linear_fwd_pallas:
 for x [..., D] with the statistics in f32 (the mean, then the mean of the
 squared deviation), the normalised activation rounded to x's type, the
 product accumulated in f32 and the bias added in f32 before the single
-rounding to x's type. W is stored (in, out). The kernel normalises x as it
-enters shared memory, so the normalised activation never reaches device
-memory. The backward is plain PyTorch, the JAX package's _ln_linear_bwd
+rounding to x's type. W is stored (in, out). The bf16 kernel normalises x
+between shared memory and the tensor cores (the register operand of its
+wgmma), so the normalised activation never reaches device memory, and takes
+each row tile's statistics once; `plan` says what each bf16 launch computes. The backward is plain PyTorch, the JAX package's _ln_linear_bwd
 (XLA there): dln = dy W^T kept in f32, then the LayerNorm backward, and dW,
 db, dgamma, dbeta only where autograd asks for them.
 
@@ -25,6 +26,8 @@ LAUNCHES["ln_linear"]. The backward is the same code on both.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
@@ -142,6 +145,100 @@ class _LnLinear(torch.autograd.Function):
 
 
 # ---------------------------------------------------------------------------
+# The bf16 launch (csrc/ln_linear.cu: plan_for)
+# ---------------------------------------------------------------------------
+
+ROWS = 128          # rows of a row tile: two consumer warpgroups of 64
+DEPTH = 64          # depth of a stage: one 128-byte swizzled row of bf16
+WIDTHS = (256, 128)  # column tile widths, the wider preferred
+MAX_STAGES = 4
+SMEM_LIMIT = 232_448
+# Clusters of g blocks (one an SM) that an H100 runs at once, from
+# cudaOccupancyMaxActiveClusters on the card (a cluster stays within a GPC,
+# so clusters of 3, 4, 6 and 8 leave SMs idle; tests/test_torch_cuda.py
+# checks the table); sizes 5 and 7 are not taken.
+ACTIVE_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 6: 17, 8: 15}
+
+
+def _smem(d: int, bn: int, stages: int) -> int:
+    """The aligned ring of (x, W) stages, the output staging tile [128, bn],
+    gamma and beta as f32, the row tile's mean and rstd, the bias of two
+    column tiles as f32, a full and an empty barrier a stage and a bias
+    buffer."""
+    return (1024 + stages * (ROWS * DEPTH * 2 + DEPTH * bn * 2)
+            + ROWS * bn * 2 + 8 * d + 8 * ROWS + 8 * bn + 8 * (2 * stages + 4))
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """What one bf16 launch at [m, d] -> f computes: row tiles of ROWS rows
+    (the last ragged), each owned by a cluster of `groups` blocks, block g
+    of which walks the column tiles `col_tiles(g)` of width `bn` and takes
+    the statistics of the rows `stats_rows(g)` of its row tile for all of
+    them; `stages` (x, W) stages in flight; `smem_bytes` of dynamic shared
+    memory (0: the launch does not fit in a block)."""
+    m: int
+    d: int
+    f: int
+    bn: int
+    groups: int
+    stages: int
+    smem_bytes: int
+
+    @property
+    def fits(self) -> bool:
+        return self.smem_bytes > 0
+
+    @property
+    def row_tiles(self) -> tuple:
+        """(first row, live rows) of each row tile."""
+        return tuple((r, min(ROWS, self.m - r)) for r in range(0, self.m, ROWS))
+
+    @property
+    def grid(self) -> int:
+        return len(self.row_tiles) * self.groups
+
+    def col_tiles(self, g: int) -> tuple:
+        """The first column of each column tile block g of a group walks."""
+        return tuple(range(g * self.bn, self.f, self.groups * self.bn))
+
+    def stats_rows(self, g: int) -> range:
+        """The rows of its row tile whose statistics block g takes."""
+        share = -(-ROWS // self.groups)
+        return range(min(ROWS, g * share), min(ROWS, (g + 1) * share))
+
+
+@functools.lru_cache(maxsize=None)
+def plan(m: int, d: int, f: int) -> Plan:
+    """The bf16 launch at [m, d] -> f: the column tile width and groups
+    that finish soonest (the fewest waves of clusters, ACTIVE_CLUSTERS at
+    once, times the column tiles a block walks, times their width; ties to
+    the wider tile and the fewer groups), then the most stages that fit, at
+    least 2."""
+    if m < 1 or d < 1 or f < 1 or d % 128 or f % 128:
+        raise ValueError(f"ln_linear kernel takes m > 0 and D and F multiples "
+                         f"of 128; got m={m}, D={d}, F={f}")
+    row_tiles = -(-m // ROWS)
+    best = None
+    for bn in WIDTHS:
+        if f % bn:
+            continue
+        cols = f // bn
+        for g, active in ACTIVE_CLUSTERS.items():
+            if g > cols:
+                continue
+            cost = -(-row_tiles // active) * -(-cols // g) * bn
+            if best is None or cost < best[0]:
+                best = (cost, bn, g)
+    _, bn, g = best
+    stages = MAX_STAGES
+    while stages >= 2 and _smem(d, bn, stages) > SMEM_LIMIT:
+        stages -= 1
+    return Plan(m, d, f, bn, g, stages,
+                _smem(d, bn, stages) if stages >= 2 else 0)
+
+
+# ---------------------------------------------------------------------------
 # Launch
 # ---------------------------------------------------------------------------
 
@@ -161,7 +258,8 @@ def _vector(name, t, n, device):
 def _launch(x, gamma, beta, w, b, eps):
     """The K5 kernel on x [M, D]: y [M, F] in x's type. Raises on what the
     kernel does not take: D or F not a multiple of 128, x and W not of one
-    type (float32 or bfloat16), a tensor off x's device."""
+    type (float32 or bfloat16), a tensor off x's device, a bf16 launch that
+    `plan` says does not fit."""
     if x.device.type != "cuda":
         raise ValueError(f"ln_linear kernel needs CUDA tensors, got {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -186,6 +284,9 @@ def _launch(x, gamma, beta, w, b, eps):
                          f"{gamma.dtype}, {beta.dtype}")
     if b is not None:
         _vector("b", b, F, x.device)
+    if x.dtype == torch.bfloat16 and not plan(M, D, F).fits:
+        raise ValueError(f"ln_linear kernel: D={D} leaves no room for two "
+                         f"stages in a block's shared memory")
     y = torch.empty(M, F, dtype=x.dtype, device=x.device)
     fn = build.function("ln_linear", "missm_ln_linear_forward", _ARGTYPES)
     rc = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(),

@@ -10,7 +10,10 @@ pre-activation `wide`,
 
 with R rounding to dy's type: the first product and the derivative in f32,
 dwide rounded once, the second product accumulated in f32. The kernel keeps
-dwide [M, FF] on the chip.
+dwide [M, FF] on the chip: in bf16 a cluster of C blocks owns 128 rows, each
+block D / C of the output columns, and each step of C * 64 FF columns the
+blocks exchange their dwide chunks through distributed shared memory. `plan`
+says what each bf16 launch computes.
 
 No model path calls it, as in the JAX package: its callers are the probe
 (probes/mlp_bwd_probe.py) and the tests. On a CPU tensor the wrapper
@@ -20,6 +23,8 @@ raises, and each launch adds one to LAUNCHES["mlp_bwd_dx"].
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -28,10 +33,118 @@ from . import build
 from .launches import LAUNCHES
 
 D_SIZES = (128, 256, 512, 768, 1024)  # the widths csrc/mlp_bwd.cu is built for
-# (rows, FF columns) per block step of the bf16 kernel: the default at every
-# width, the others at D = 1024 (the probe's sweep)
-TILES = ((32, 32), (16, 32), (32, 16), (16, 16))
-DEFAULT_TILE = TILES[0]
+ROWS = 128          # rows a cluster owns: two consumer warpgroups of 64
+DEPTH = 64          # depth of a stage; FF columns of a block's dwide chunk
+NOUT = (128, 256)   # output columns a block owns (wgmma's N), as built
+MAX_CLUSTER = 8
+MAX_STAGES = 4
+SMEM_LIMIT = 232_448
+
+
+def tiles(d: int) -> tuple:
+    """The bf16 kernel's tiles (rows, cluster) at width d: clusters of C
+    blocks each owning d / C output columns, as built (NOUT), the narrower
+    first. The first is the default: with 128 output columns a block the
+    accumulator stays in registers, with 256 it spills (PERF.md, PR 9)."""
+    return tuple((ROWS, d // n) for n in NOUT
+                 if d % n == 0 and d // n <= MAX_CLUSTER)
+
+
+TILES = tiles(1024)  # the probe's width: its sweep
+
+
+def default_tile(d: int):
+    return tiles(d)[0]
+
+
+# Clusters of C blocks (one an SM) that an H100 runs at once, from
+# cudaOccupancyMaxActiveClusters on the card (kernels/ln_linear.py).
+ACTIVE_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 6: 17, 8: 15}
+
+
+def _stage_bytes(nout: int) -> int:
+    """A (dy [128, 64], W2 [64, 64]) stage or a W1 [nout, 64] stage."""
+    return max(ROWS * DEPTH * 2 + 64 * DEPTH * 2, nout * DEPTH * 2)
+
+
+def _smem(cluster: int, nout: int, stages: int) -> int:
+    """The aligned dwide step buffer, the wide tile, the ring and the
+    barriers (a full and an empty one a stage, the wide tile's two, two a
+    consumer warpgroup for the dwide step)."""
+    chunk = ROWS * DEPTH * 2
+    return (1024 + cluster * chunk + chunk + stages * _stage_bytes(nout)
+            + 8 * (2 * stages + 2 + 4))
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """What one bf16 launch at [m, d, ff] with tile (rows, cluster)
+    computes: row tiles of `rows` rows (the last ragged), each owned by a
+    cluster of `cluster` blocks; block c owns output columns
+    `out_cols(c)` and computes the dwide chunk `ff_chunks(c)` of each FF
+    step; `stages` stages in flight; `smem_bytes` of dynamic shared
+    memory."""
+    m: int
+    d: int
+    ff: int
+    rows: int
+    cluster: int
+    stages: int
+    smem_bytes: int
+
+    @property
+    def nout(self) -> int:
+        return self.d // self.cluster
+
+    @property
+    def row_tiles(self) -> tuple:
+        return tuple((r, min(self.rows, self.m - r))
+                     for r in range(0, self.m, self.rows))
+
+    @property
+    def grid(self) -> int:
+        return len(self.row_tiles) * self.cluster
+
+    @property
+    def waves(self) -> int:
+        """Waves of clusters on an H100 (ACTIVE_CLUSTERS at once)."""
+        return -(-len(self.row_tiles) // ACTIVE_CLUSTERS[self.cluster])
+
+    @property
+    def steps(self) -> int:
+        return self.ff // (self.cluster * DEPTH)
+
+    def out_cols(self, rank: int) -> range:
+        return range(rank * self.nout, (rank + 1) * self.nout)
+
+    def ff_chunks(self, rank: int) -> tuple:
+        """The first FF column of the dwide chunk block `rank` computes in
+        each step."""
+        step = self.cluster * DEPTH
+        return tuple(s * step + rank * DEPTH for s in range(self.steps))
+
+
+@functools.lru_cache(maxsize=None)
+def plan(m: int, d: int, ff: int, tile=None) -> Plan:
+    """The bf16 launch at [m, d, ff] with `tile` (default: default_tile(d)).
+    Raises ValueError on what the kernel was not built for or what does
+    not fit."""
+    tile = default_tile(d) if tile is None and d in D_SIZES else tile
+    if d not in D_SIZES:
+        raise ValueError(f"mlp_bwd_dx kernel takes D in {D_SIZES}; got {d}")
+    if tuple(tile) not in tiles(d):
+        raise ValueError(f"no tile {tuple(tile)} at D={d}; built: {tiles(d)}")
+    rows, cluster = tile
+    if m < 1 or ff < 1 or ff % (cluster * DEPTH):
+        raise ValueError(f"FF={ff} is not a positive multiple of "
+                         f"{cluster * DEPTH} (tile {tuple(tile)}), or m={m} < 1")
+    nout = d // cluster
+    stages = MAX_STAGES
+    while stages >= 2 and _smem(cluster, nout, stages) > SMEM_LIMIT:
+        stages -= 1
+    if stages < 2:
+        raise ValueError(f"tile {tuple(tile)} at D={d} does not fit")
+    return Plan(m, d, ff, rows, cluster, stages, _smem(cluster, nout, stages))
 
 
 def quick_gelu_grad(x):
@@ -48,9 +161,10 @@ def mlp_bwd_dx_plain(dy, wide, w1, w2):
     return matmul_f32(dwide.to(dy.dtype), w1.t()).to(dy.dtype)
 
 
-def mlp_bwd_dx(dy, wide, w1, w2, *, tile=DEFAULT_TILE):
+def mlp_bwd_dx(dy, wide, w1, w2, *, tile=None):
     """dh [M, D] in dy's type, for dy [M, D], wide [M, FF], w1 [D, FF] and
-    w2 [FF, D]. `tile` (bf16 on CUDA only): one of TILES."""
+    w2 [FF, D]. `tile` (bf16 on CUDA only): one of tiles(D), default
+    default_tile(D)."""
     if dy.device.type == "cpu":
         return mlp_bwd_dx_plain(dy, wide, w1, w2)
     out = _launch(dy, wide, w1, w2, tile)
@@ -64,8 +178,9 @@ _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 def _launch(dy, wide, w1, w2, tile):
     """The K6 kernel. Raises on what it does not take: tensors not CUDA,
     contiguous, 16-byte aligned and of one type (float32 or bfloat16),
-    shapes that disagree, D not one of D_SIZES, a tile it was not built for,
-    FF not a multiple of the tile's FF columns (16 for float32)."""
+    shapes that disagree, D not one of D_SIZES; in bf16 what `plan` refuses
+    (a tile it was not built for, FF not a multiple of the tile's step);
+    FF not a multiple of 16 in float32."""
     if dy.device.type != "cuda":
         raise ValueError(f"mlp_bwd_dx kernel needs CUDA tensors, got {dy.device}")
     if dy.dtype not in (torch.float32, torch.bfloat16):
@@ -86,11 +201,13 @@ def _launch(dy, wide, w1, w2, tile):
     bf16 = dy.dtype == torch.bfloat16
     if D not in D_SIZES:
         raise ValueError(f"mlp_bwd_dx kernel takes D in {D_SIZES}; got {D}")
-    if bf16 and tuple(tile) not in (TILES if D == 1024 else TILES[:1]):
-        raise ValueError(f"no tile {tuple(tile)} at D={D}")
-    step = tile[1] if bf16 else 16
-    if FF % step:
-        raise ValueError(f"FF={FF} is not a multiple of {step}")
+    if bf16:
+        tile = plan(M, D, FF, None if tile is None else tuple(tile))
+        tile = (tile.rows, tile.cluster)
+    else:
+        tile = (0, 0)
+        if FF % 16:
+            raise ValueError(f"FF={FF} is not a multiple of 16")
     out = torch.empty_like(dy)
     fn = build.function("mlp_bwd", "missm_mlp_bwd_dx", _ARGTYPES)
     rc = fn(dy.data_ptr(), wide.data_ptr(), w1.data_ptr(), w2.data_ptr(),

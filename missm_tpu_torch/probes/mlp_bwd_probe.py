@@ -8,7 +8,8 @@ the next layer's dy, one stack being the whole tower's MLP-dx work).
   ab      ms per stack: the library chain (mlp_bwd_dx_plain: two cuBLAS
           products around one elementwise pass, dwide through device
           memory), then the kernel at its default tile
-  sweep   ms per stack for each of the kernel's tiles (kernels.mlp_bwd.TILES)
+  sweep   ms per stack for each of the kernel's tiles (kernels.mlp_bwd.TILES:
+          (rows, cluster), clusters of blocks that split D between them)
 
 CUDA events around one stack, the median of `runs` stacks after two warm-up
 stacks.
@@ -82,10 +83,10 @@ def ab(data, runs=5) -> dict:
 
 
 def sweep(data, runs=5) -> dict:
-    return {f"bm={bm} bf={bf}": stack_ms(
-                lambda *a, t=(bm, bf): mlp_bwd.mlp_bwd_dx(*a, tile=t),
+    return {f"rows={rows} cluster={cluster}": stack_ms(
+                lambda *a, t=(rows, cluster): mlp_bwd.mlp_bwd_dx(*a, tile=t),
                 data, runs)
-            for bm, bf in mlp_bwd.TILES}
+            for rows, cluster in mlp_bwd.TILES}
 
 
 def main(argv=None) -> None:

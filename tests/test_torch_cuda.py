@@ -684,6 +684,91 @@ def test_ln_linear_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         lnl.ln_linear(x, {"scale": ln["scale"].half(), "bias": ln["bias"]},
                       {"w": w})                                       # gamma
+    wide = torch.zeros(8, 16384, device=cuda, dtype=torch.bfloat16)
+    ones = torch.ones(16384, device=cuda)
+    with pytest.raises(ValueError):                                   # smem
+        lnl.ln_linear(wide, {"scale": ones, "bias": ones},
+                      {"w": torch.zeros(16384, 128, device=cuda,
+                                        dtype=torch.bfloat16)})
+
+
+# Every edge of the bf16 kernel's plan (kernels/ln_linear.py::plan): rows
+# around its 128-row tiles and a train microbatch's 1232 and 4112, the
+# 64-column depth steps at D = 128 / 768 / 1024, and F at one and three
+# 128-wide tiles and the paths' 3072 and 4096 (256-wide tiles, clusters of
+# 1 to 8 blocks).
+LN_EDGE_M = (8, 56, 64, 72, 120, 128, 136, 1232, 4112)
+LN_EDGE_D = (128, 768, 1024)
+LN_EDGE_F = (128, 384, 3072, 4096)
+
+
+@pytest.mark.parametrize("f", LN_EDGE_F)
+@pytest.mark.parametrize("d", LN_EDGE_D)
+@pytest.mark.parametrize("m", LN_EDGE_M)
+def test_ln_linear_kernel_edges_match_plain(cuda, monkeypatch, m, d, f):
+    """K5 in bf16 with the bias, and in f32 without it, at every edge,
+    against its plain version; one launch each."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator(device=cuda).manual_seed(m + d + f)
+    for dtype, bias in ((torch.bfloat16, True), (torch.float32, False)):
+        x, ln, lin = _ln_inputs(gen, (m, d), f, dtype, bias)
+        kernels.reset_launches()
+        got = lnl.ln_linear(x, ln, lin)
+        ref = lnl.ln_linear_plain(x, ln, lin)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (m, f)
+        atol, rtol = TOL[dtype]
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+        assert kernels.LAUNCHES == _counts(ln_linear=1)
+
+
+@pytest.mark.parametrize("vectors", ["bf16", "f32", "mixed"])
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("shape", [(16448, 1024), (64, 257, 1024),
+                                   (16, 77, 768), (1, 72, 128)])
+def test_ln_linear_kernel_takes_each_variant(cuda, monkeypatch, shape, bias,
+                                             vectors):
+    """bf16 K5 on 2-D and 3-D input (the eval image rows, the image and
+    text towers' [B, N, D]), with and without the bias, gamma, beta and b
+    in bf16, in f32, or gamma and beta in f32 beside a bf16 bias."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    f = 4 * shape[-1]
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape) + bias)
+    x, ln, lin = _ln_inputs(gen, shape, f, torch.bfloat16, bias)
+    if vectors != "bf16":
+        ln = finetune.cast_tree(ln, torch.float32)
+    if vectors == "f32" and bias:
+        lin["b"] = lin["b"].float()
+    kernels.reset_launches()
+    got = lnl.ln_linear(x, ln, lin)
+    ref = lnl.ln_linear_plain(x, ln, lin)
+    torch.cuda.synchronize()
+    assert got.shape == (*shape[:-1], f) and got.dtype == torch.bfloat16
+    atol, rtol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+    assert kernels.LAUNCHES == _counts(ln_linear=1)
+
+
+def test_ln_linear_plan_is_what_the_launcher_computes(cuda):
+    """kernels/ln_linear.py::plan's tile width, cluster, stages and shared
+    memory are what the C launcher takes, at every edge and path shape."""
+    import ctypes
+
+    from missm_tpu_torch.kernels import build
+    fn = build.function("ln_linear", "missm_ln_linear_plan",
+                        [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    smem = build.function("ln_linear", "missm_ln_linear_smem",
+                          [ctypes.c_int] * 3)
+    out = (ctypes.c_int * 4)()
+    for m in (*LN_EDGE_M, 4928, 16448):
+        for d in (*LN_EDGE_D, 8192, 16384):
+            for f in LN_EDGE_F:
+                p = lnl.plan(m, d, f)
+                fn(m, d, f, ctypes.addressof(out))
+                assert tuple(out) == (p.bn, p.groups, p.stages,
+                                      p.smem_bytes), (m, d, f)
+                assert smem(m, d, f) == p.smem_bytes
 
 
 MLP_CASES = [(80, 1024, 4096), (4112, 1024, 4096), (16448, 1024, 4096),
@@ -718,7 +803,8 @@ def test_mlp_bwd_dx_kernel_matches_plain(cuda, monkeypatch, m, d, ff, dtype):
 
 @pytest.mark.parametrize("tile", mlp_bwd.TILES)
 def test_mlp_bwd_dx_kernel_tiles_agree(cuda, tile):
-    """Every tile the probe sweeps gives the plain version's result."""
+    """Every tile the probe sweeps, (rows, cluster), gives the plain
+    version's result."""
     gen = torch.Generator(device=cuda).manual_seed(13)
     args = _mlp_inputs(gen, 4112, 1024, 4096, torch.bfloat16)
     got = mlp_bwd.mlp_bwd_dx(*args, tile=tile)
@@ -726,6 +812,79 @@ def test_mlp_bwd_dx_kernel_tiles_agree(cuda, tile):
     torch.cuda.synchronize()
     atol, rtol = TOL[torch.bfloat16]
     torch.testing.assert_close(got.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+def test_active_cluster_tables_are_the_cards(cuda):
+    """kernels/ln_linear.py and kernels/mlp_bwd.py plan their waves with
+    ACTIVE_CLUSTERS, clusters a card runs at once: each entry is what
+    cudaOccupancyMaxActiveClusters says for the bf16 kernels at their
+    flagship shared memory on an H100 (a cluster stays within a GPC)."""
+    import ctypes
+
+    from missm_tpu_torch.kernels import build
+    if "H100" not in torch.cuda.get_device_name(0):
+        pytest.skip("the tables are an H100's")
+    args = [ctypes.c_int] * 3
+    k5 = build.function("ln_linear", "missm_ln_linear_active_clusters", args)
+    k6 = build.function("mlp_bwd", "missm_mlp_bwd_active_clusters", args)
+    smem5 = lnl.plan(16448, 1024, 4096).smem_bytes
+    smem6 = mlp_bwd.plan(16448, 1024, 4096).smem_bytes
+    for g, n in lnl.ACTIVE_CLUSTERS.items():
+        assert k5(256, g, smem5) == n, g
+    for c, n in mlp_bwd.ACTIVE_CLUSTERS.items():
+        assert k6(128, c, smem6) == n, c
+
+
+# Rows around the 128-row cluster tiles (the last cluster's rows past M),
+# and a train microbatch's 4112; FF = 3072 is a whole number of steps of
+# every built tile.
+MLP_EDGE_M = (8, 56, 64, 72, 120, 128, 136, 4112)
+
+
+@pytest.mark.parametrize("d", mlp_bwd.D_SIZES)
+@pytest.mark.parametrize("m", MLP_EDGE_M)
+def test_mlp_bwd_dx_kernel_edges_match_plain(cuda, monkeypatch, m, d):
+    """K6 at each width with each tile built for it in bf16, and in f32,
+    against its plain version; one launch each."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator(device=cuda).manual_seed(m + d)
+    for dtype, tile in ([(torch.bfloat16, t) for t in mlp_bwd.tiles(d)]
+                        + [(torch.float32, None)]):
+        args = _mlp_inputs(gen, m, d, 3072, dtype)
+        kernels.reset_launches()
+        got = mlp_bwd.mlp_bwd_dx(*args, tile=tile)
+        ref = mlp_bwd.mlp_bwd_dx_plain(*args)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (m, d)
+        atol, rtol = TOL[dtype]
+        torch.testing.assert_close(got.float(), ref.float(), atol=atol,
+                                   rtol=rtol, msg=lambda e: f"{tile}: {e}")
+        assert kernels.LAUNCHES == _counts(mlp_bwd_dx=1)
+
+
+def test_mlp_bwd_dx_is_the_same_on_every_run(cuda):
+    """No atomics: two launches give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    args = _mlp_inputs(gen, 4112, 1024, 4096, torch.bfloat16)
+    for tile in mlp_bwd.TILES:
+        a = mlp_bwd.mlp_bwd_dx(*args, tile=tile)
+        b = mlp_bwd.mlp_bwd_dx(*args, tile=tile)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), tile
+
+
+def test_mlp_bwd_plan_asks_for_the_kernels_shared_memory(cuda):
+    """kernels/mlp_bwd.py::plan's shared memory is what the C launcher asks
+    for at every built tile, and 0 for a tile it was not built for."""
+    import ctypes
+
+    from missm_tpu_torch.kernels import build
+    smem = build.function("mlp_bwd", "missm_mlp_bwd_smem", [ctypes.c_int] * 3)
+    for d in mlp_bwd.D_SIZES:
+        for tile in mlp_bwd.tiles(d):
+            assert smem(d, *tile) == mlp_bwd.plan(128, d, 3072,
+                                                  tile).smem_bytes, (d, tile)
+    assert smem(1024, 128, 2) == smem(1024, 32, 32) == smem(192, 128, 1) == 0
 
 
 def test_mlp_bwd_dx_rejects_what_the_kernel_does_not_take(cuda):
@@ -744,6 +903,14 @@ def test_mlp_bwd_dx_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         mlp_bwd.mlp_bwd_dx(dy, wide[:, :200].contiguous(), w1[:, :200]
                            .contiguous(), w2[:200].contiguous())      # FF
+    with pytest.raises(ValueError):
+        mlp_bwd.mlp_bwd_dx(dy, wide, w1, w2, tile=(128, 2))           # NOUT 64
+    big = _mlp_inputs(torch.Generator(device=cuda), 16, 1024, 2304,
+                      torch.bfloat16)
+    with pytest.raises(ValueError):
+        mlp_bwd.mlp_bwd_dx(*big, tile=(128, 8))                       # FF step
+    with pytest.raises(ValueError):
+        mlp_bwd.mlp_bwd_dx(*big, tile=(128, 16))                      # cluster
 
 
 def test_fused_tiny_eval_step_on_the_card(cuda, monkeypatch):

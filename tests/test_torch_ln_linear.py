@@ -278,3 +278,72 @@ def test_switch_takes_no_fused_path_at_tiny_width(fused):
     lnl.FUSE_LN2_FC1 = False
     ref, _ = tft.model_forward(params, tcfg, data, missing, device="cpu")
     assert torch.equal(got, ref)
+
+
+# ---------------------------------------------------------------------------
+# kernels.ln_linear.plan: what each bf16 launch of csrc/ln_linear.cu computes
+# ---------------------------------------------------------------------------
+
+# every ln2fc1 path's shape: eval image and text, train image and ragged text
+PATH_SHAPES = [(16448, 1024, 4096), (4928, 768, 3072), (4112, 1024, 4096),
+               (1232, 768, 3072)]
+PLAN_M = (8, 56, 64, 72, 120, 128, 136, 1232, 4112, 16448)
+PLAN_D = (128, 768, 1024)
+PLAN_F = (128, 384, 3072, 4096)
+
+
+def _check_plan(m, d, f):
+    p = lnl.plan(m, d, f)
+    assert p.fits and 2 <= p.stages <= lnl.MAX_STAGES
+    assert p.smem_bytes <= lnl.SMEM_LIMIT
+    assert p.stages == lnl.MAX_STAGES or lnl._smem(d, p.bn, p.stages + 1) \
+        > lnl.SMEM_LIMIT
+    assert f % p.bn == 0 and p.groups in lnl.ACTIVE_CLUSTERS
+    # row tiles cover M once, the last ragged
+    rows = [r for r0, n in p.row_tiles for r in range(r0, r0 + n)]
+    assert rows == list(range(m)) and all(n <= lnl.ROWS for _, n in p.row_tiles)
+    assert p.grid == len(p.row_tiles) * p.groups
+    # the groups of a cluster walk every column tile once, and take every
+    # row's statistics once
+    cols = sorted(c for g in range(p.groups) for c in p.col_tiles(g))
+    assert cols == list(range(0, f, p.bn))
+    stats = sorted(r for g in range(p.groups) for r in p.stats_rows(g))
+    assert stats == list(range(lnl.ROWS))
+    assert all(len(p.col_tiles(g)) >= 1 for g in range(p.groups))
+    return p
+
+
+@pytest.mark.parametrize("m,d,f", PATH_SHAPES)
+def test_plan_at_each_path_shape(m, d, f):
+    _check_plan(m, d, f)
+
+
+@pytest.mark.parametrize("m", PLAN_M)
+@pytest.mark.parametrize("d", PLAN_D)
+@pytest.mark.parametrize("f", PLAN_F)
+def test_plan_fits_and_covers_every_tile_edge_once(m, d, f):
+    _check_plan(m, d, f)
+
+
+def test_plan_figures_of_the_source_note():
+    """csrc/ln_linear.cu's note: the eval image shape takes 129 blocks of one
+    row tile each, 16 column tiles of 256, three stages; the ragged train
+    text [1232, 768] -> 3072 clusters of 8 with 128-wide tiles."""
+    p = lnl.plan(16448, 1024, 4096)
+    assert (p.bn, p.groups, p.stages, p.grid) == (256, 1, 3, 129)
+    assert len(p.col_tiles(0)) == 16
+    assert p.smem_bytes == 225_360
+    p = lnl.plan(1232, 768, 3072)
+    assert (p.bn, p.groups, p.grid) == (128, 8, 80)
+    assert [len(p.col_tiles(g)) for g in range(8)] == [3] * 8
+    assert lnl.plan(4928, 768, 3072).groups == 3
+
+
+def test_plan_refuses_what_the_kernel_does_not_take():
+    for m, d, f in ((0, 128, 128), (8, 200, 128), (8, 128, 300)):
+        with pytest.raises(ValueError):
+            lnl.plan(m, d, f)
+    # gamma and beta as f32 grow with D: past ~16k columns two stages no
+    # longer fit, and the wrapper raises on such a launch
+    assert not lnl.plan(8, 16384, 256).fits
+    assert lnl.plan(8, 8192, 256).fits
