@@ -15,7 +15,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 temporal [16*257, 8]; train3, recorded: K1 and K3 at
                 [64, 257], K2(b) and K4 unmasked at [8, 593], K2(c) and K4
                 block-diagonal at [8*257, 8], K2(a) at B=8; each backward
-                through torch.autograd.grad; ln2fc1: K5 at the eval image
+                through torch.autograd.grad; distill: K1 without the
+                log-sum-exp at B=16, the teacher's no-grad forward (the
+                sweep's shapes are eval's); ln2fc1: K5 at the eval image
                 [64*257, 1024] -> 4096 with bias and text [64*77, 768] ->
                 3072 without, and at the train microbatch's image and ragged
                 text [16*77, 768] rows with its backward; probes: K6 at
@@ -88,7 +90,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 nostage and full, P3, P2). Prints ms per stack or call,
                 checks the launches of K5, K6 and P1-P4 and that the arms
                 computing softmax attention agree with production.
- 10. summary  - a `{"kernels": [...]}` line, the card's name and power limit,
+ 10. heads    - all 13 fusion heads at the flagship's fusion widths (feature
+                768, fusion 256, 10 classes) on random f32 embeddings of
+                (language, video, audio), B=64, codes rotating over {0, 1,
+                2, 3}: logits and the gradient of their sum with respect to
+                every head param, card f32 (TF32 off) against the CPU
+                (logits within 1e-3, gradients 1e-4 relative); no kernel
+                launch.
+ 11. distill  - the flagship train step with the MTD_stu head (B=64 as 4 x
+                16, Adam, a teacher copied from a Distill_tea init) through
+                timed_train: every step launches K1 192 times (the student's
+                96 and the teacher's no-grad 96), K2(a) 96 and K3 96; then
+                one step after which the teacher equals old * 0.999 + the
+                updated student fusion * 0.001 within 4 units of f32
+                rounding of those terms, element by element, and no frozen
+                leaf moved; then one step each of KL_stu (the launches of
+                MTD_stu) and self_distill (K1 96, K3 96, K2(a) 48) with a
+                finite loss. Prints samples/s beside the train phase's.
+ 12. sweep    - the flagship model with the concat head and a bf16 encoder
+                through run_missing_sweep(concat_mean): the statistics pass
+                over 2 x 64 train rows, then missing types (language, image,
+                mixed) x ratios (0.1, 0.5, 0.9), each a batch of 64 and a
+                partial batch of 37 with codes from the ported
+                simulate_missing_modality; checks K1 24 and K2(a) 12
+                launches per batch, 9 finite report blocks read back, and
+                that the statistics the pass computes are non-zero and the
+                ones the sweep evaluated with; prints sweep samples/s.
+ 13. summary  - a `{"kernels": [...]}` line, the card's name and power limit,
                 and as the last line {"ok": true, "device": {...}}.
 --profile adds one torch.profiler-traced step of each of eval, train, eval3,
 train3, ln2fc1 eval and ln2fc1 train and prints device time by kernel.
@@ -97,6 +125,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import itertools
 import json
 import math
@@ -104,6 +133,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -134,6 +164,30 @@ GRADS_F32_RTOL = 1e-3                   # the same, for the gradients
 ABLATION_SAME = ("packed full", "packed nostage", "scratch", "bhne")
 ABLATION_RTOL = 2e-2
 DOTS_BF16_RTOL = 2 ** -8                # P4 dotsonly, ||err|| / ||ref||
+# heads: card f32 gradients against the CPU's, ||err|| / ||ref|| per leaf,
+# with ||ref|| taken as at least HEAD_FLOOR of the head's largest gradient
+# norm: a leaf whose gradient is zero (the attention key bias) or cancels
+# to a small remainder (the one-head SuperGAT's attention vectors) holds
+# float noise of the size of the head's larger sums
+HEAD_GRAD_RTOL = 1e-4
+HEAD_FLOOR = 1e-3
+HEAD_MODALITIES = ("language", "video", "audio")
+# distill: the teacher against its update rule, per element within
+# EMA_ULPS units of f32 rounding of the rule's terms, old * decay and
+# student * (1 - decay) (the step's fused multiply-add and the check's
+# separate products round differently by about one unit). Taking the EMA
+# toward the student before its Adam step instead would be off by about
+# (1 - decay) x lr = 1e-7, some 20 units at the head's |t| ~ 0.05.
+EMA_ULPS = 4
+SWEEP_TYPES = ("language", "image", "mixed")
+SWEEP_RATIOS = (0.1, 0.5, 0.9)
+SWEEP_ROWS = 101                        # a batch of 64 and a partial of 37
+SWEEP_TRAIN_ROWS = 2 * B
+# batches a path's launch counts cover, where they are not STEPS steps
+COVERS = {"distill KL_stu": 1, "distill self_distill": 1,
+          "sweep": (len(SWEEP_TYPES) * len(SWEEP_RATIOS) * -(-SWEEP_ROWS // B)
+                    + SWEEP_TRAIN_ROWS // B)}
+RATES = {}                              # samples/s by timed_train's name
 
 
 def card_line() -> str:
@@ -180,21 +234,27 @@ def median_ms(fn, reps=7, iters=20) -> float:
     return spread_ms(fn, reps, iters)[1]
 
 
-def device_profile(fn, calls=5) -> list:
+def device_profile(fn, calls=5, sessions=3) -> list:
     """[(kernel name, device ms a call)] of fn, the longest first: one
-    untraced call, then `calls` traced by torch.profiler."""
+    untraced call, then `calls` traced by torch.profiler. A session whose
+    trace holds no device event (the tracer delivered none) is taken again,
+    up to `sessions` times; then it raises."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type.name == "CUDA" and e.device_time_total > 0]
-    return [(e.key, e.device_time_total / 1e3 / calls)
-            for e in sorted(events, key=lambda e: -e.device_time_total)]
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA" and e.device_time_total > 0]
+        if events:
+            return [(e.key, e.device_time_total / 1e3 / calls)
+                    for e in sorted(events, key=lambda e: -e.device_time_total)]
+    raise RuntimeError(f"torch.profiler traced no device time in {sessions} "
+                       "sessions")
 
 
 def yardstick(row, kernel, library, label):
@@ -294,8 +354,10 @@ def kernel_phase(dev, rng):
     B=16, K2(b) at [16, 593] and K2(c) at [16*257, 8]; train3, all
     recorded, K1 and K3 at [64, 257], K2(b) and K4 unmasked at [8, 593],
     K2(c) and K4 block-diagonal at [8*257, 8] and K2(a) without a key bias
-    at B=8. Times each at the shape of the path it is named for (K1 and
-    K2(a): eval)."""
+    at B=8; distill K1 without the log-sum-exp at B=16 (the teacher's
+    no-grad forward; its K2(a) is eval3's shape, its recorded student
+    train's). The sweep's K1 and K2(a) shapes are eval's. Times each at the
+    shape of the path it is named for (K1 and K2(a): eval)."""
     from missm_tpu_torch.kernels import attention as K
 
     neg = torch.finfo(torch.float32).min
@@ -313,8 +375,10 @@ def kernel_phase(dev, rng):
              replaces=f"{flash}:352 (fused_attention_cls)",
              run=lambda q, k, v: K.attention(q, k, v, 16),
              plain=lambda q, k, v: K.attention_plain(q, k, v, 16),
-             # the video tower's spatial attention: 16 videos x 8 frames
-             more={"eval3": dict(b=B3 * FRAMES, recorded=False)}),
+             # the video tower's spatial attention: 16 videos x 8 frames;
+             # the distillation teacher's no-grad forward per microbatch
+             more={"eval3": dict(b=B3 * FRAMES, recorded=False),
+                   "distill": dict(b=b_train, recorded=False)}),
         dict(name="causal_attention", path="eval", b=B, n=77, heads=12,
              kbias=kbias,
              replaces=f"{flash}:277 (fused_attention, causal=True, kbias)",
@@ -927,14 +991,14 @@ def backward_row(dev, gen, s, fwd_row):
     return row
 
 
-def flagship_config(compute_dtype, dropout_prob=0.1):
+def flagship_config(compute_dtype, dropout_prob=0.1, fusion_type="sum"):
     from missm_tpu_torch.core.config import languagebind_large
     from missm_tpu_torch.models.finetune import ModelConfig
     from missm_tpu_torch.models.fusion import FusionConfig
 
     return ModelConfig(
         towers=(("image", languagebind_large("image")),),
-        fusion=FusionConfig(fusion_type="sum",
+        fusion=FusionConfig(fusion_type=fusion_type,
                             modality_types=("language", "image"),
                             output_dims=10, feature_dims=768, fusion_dim=256,
                             dropout_prob=dropout_prob),
@@ -1199,6 +1263,7 @@ def timed_train(name, step, state, batch, params, cfg, moving, expect,
     if still:
         raise AssertionError(f"trainable {name} leaves did not move: {still}")
     rate = len(batch[1]) * STEPS / dt
+    RATES[name] = rate
     print(f"{name}: {STEPS} steps of B={len(batch[1])} in {dt:.4f} s = "
           f"{rate:.2f} samples/s, "
           f"{dt / STEPS * 1e3:.3f} ms/step, peak memory "
@@ -1356,16 +1421,24 @@ def train3_grads(dev, rng):
                     attention_unsplit_bwd=audio))
 
 
-def flagship_train_inputs(dev, rng):
+def flagship_train_inputs(dev, rng, fusion_type="sum"):
     """bench.py's train batch for the flagship model (ids without a mask,
     f32 images, codes from {0, 1, 4}, lr, the head's dropout generator), its
     seeded f32 params and the train step over 4 x 16 microbatches with its
-    Adam state. Returns (cfg, params, state, step, batch)."""
+    Adam state; for MTD_stu and KL_stu the state holds a teacher, a copy of
+    a seeded Distill_tea head. Returns (cfg, params, state, step, batch)."""
     from missm_tpu_torch.models import finetune
-    from missm_tpu_torch.train.step import init_train_state, make_train_step
+    from missm_tpu_torch.models.fusion import init_fusion
+    from missm_tpu_torch.train.step import (TEACHER_TYPES, init_train_state,
+                                            make_train_step)
 
-    cfg = flagship_config("bfloat16")
+    cfg = flagship_config("bfloat16", fusion_type=fusion_type)
     params = finetune.init_model_params(cfg, seed=0, device=dev)
+    teacher = None
+    if fusion_type in TEACHER_TYPES:
+        teacher = init_fusion(
+            torch.Generator(device=dev).manual_seed(1),
+            dataclasses.replace(cfg.fusion, fusion_type="Distill_tea"))
     ids, _ = text_batch(rng, B, vary_length=False)
     data = {"language": torch.as_tensor(ids, device=dev),
             "image": torch.as_tensor(rng.standard_normal(
@@ -1374,7 +1447,7 @@ def flagship_train_inputs(dev, rng):
     batch = (data, torch.as_tensor(rng.integers(0, 10, B), device=dev),
              torch.as_tensor(rng.choice([0, 1, 4], B), device=dev), LR,
              torch.Generator(device=dev).manual_seed(0))
-    state, tx = init_train_state(params, cfg)
+    state, tx = init_train_state(params, cfg, teacher_fusion=teacher)
     return cfg, params, state, make_train_step(cfg, tx, accum_steps=ACCUM,
                                                device=dev), batch
 
@@ -1629,6 +1702,274 @@ def ln2fc1_grads(dev, rng):
                              "unfused ones")
 
 
+def heads_phase(dev, rng, card, profile):
+    """All 13 fusion heads at the flagship's fusion widths on random f32
+    embeddings of the three modalities (B=64, codes rotating over {0, 1, 2,
+    3}): logits and the gradient of their sum with respect to every head
+    param, card f32 (TF32 off) against the CPU. Launches no kernel."""
+    from missm_tpu_torch.kernels import attention as K
+    from missm_tpu_torch.models.finetune import tree_map
+    from missm_tpu_torch.models.fusion import (FUSION_TYPES, fusion_forward,
+                                               init_fusion)
+    from missm_tpu_torch.train.trainability import leaves
+
+    base = flagship_config("float32").fusion
+    embeds = {m: rng.standard_normal((B, base.feature_dims))
+              .astype(np.float32) for m in HEAD_MODALITIES}
+    codes = np.arange(B) % 4
+
+    def run(params, cfg, device):
+        p = tree_map(
+            lambda t: t.detach().to(device, copy=True).requires_grad_(),
+            params)
+        logits, _ = fusion_forward(
+            p, cfg, {m: torch.as_tensor(e, device=device)
+                     for m, e in embeds.items()},
+            torch.as_tensor(codes, device=device))
+        logits.sum().backward()
+        return logits.detach().cpu(), [t.grad.cpu() for t in leaves(p)]
+
+    K.reset_launches()
+    for i, ftype in enumerate(FUSION_TYPES):
+        cfg = dataclasses.replace(base, fusion_type=ftype,
+                                  modality_types=HEAD_MODALITIES)
+        params = init_fusion(torch.Generator().manual_seed(i), cfg)
+        t0 = time.perf_counter()
+        with no_tf32():
+            got, g_gpu = run(params, cfg, dev)
+        card_s = time.perf_counter() - t0
+        ref, g_cpu = run(params, cfg, "cpu")
+        err = (got - ref).abs().max().item()
+        norms = [g.norm().item() for g in g_cpu]
+        floor = HEAD_FLOOR * max(norms)
+        rel = [(a - b).norm().item() / max(n, floor)
+               for a, b, n in zip(g_gpu, g_cpu, norms)]
+        print(f"heads {ftype}: {len(g_cpu)} leaves, "
+              f"{sum(t.numel() for t in g_cpu)} params, card "
+              f"{card_s * 1e3:.1f} ms; f32 logits max abs err {err:.3e} "
+              f"(limit {LOGITS_F32_ATOL}); worst gradient rel err "
+              f"{max(rel):.3e} (limit {HEAD_GRAD_RTOL}; "
+              f"{sum(n < floor for n in norms)} leaves under the floor)",
+              flush=True)
+        if not (err <= LOGITS_F32_ATOL and torch.isfinite(got).all()
+                and max(rel) <= HEAD_GRAD_RTOL):
+            raise AssertionError(f"card {ftype} head disagrees with the CPU")
+    launches = dict(K.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"the heads launched kernels: {launches}")
+    return {"heads": launches}
+
+
+def distill_phase(dev, rng, card, profile):
+    """The flagship train step (B=64 as 4 x 16) with the MTD_stu head and
+    its EMA teacher through timed_train; then one step checked against the
+    EMA rule; then one step each of KL_stu and self_distill on the same
+    params (one head shape for all three)."""
+    from missm_tpu_torch.kernels import attention as K
+    from missm_tpu_torch.models import finetune
+    from missm_tpu_torch.train.step import (EMA_DECAY, init_train_state,
+                                            make_train_step)
+    from missm_tpu_torch.train.trainability import (FROZEN, leaves,
+                                                    param_labels)
+
+    cfg, params, state, step, batch = flagship_train_inputs(dev, rng,
+                                                            "MTD_stu")
+    blocks = params["encoder"]["image"]["vision"]["blocks"]
+    moving = {"vision block 0 q lora_b": blocks[0]["attn"]["q"]["lora_b"],
+              "text block 0 q w": params["encoder"]["language"]["text"]
+              ["blocks"][0]["attn"]["q"]["w"],
+              "fusion mlp_fc1 w": params["fusion"]["mlp_fc1"]["w"],
+              "fusion head fc2 w": params["fusion"]["head"]["fc2"]["w"]}
+    n_vision, n_text = layers(cfg)
+    # the teacher's no-grad forward beside the student's in every microbatch
+    teacher_step = dict(attention=2 * n_vision * ACCUM,
+                        attention_bwd=n_vision * ACCUM,
+                        causal_attention=2 * n_text * ACCUM)
+    state, launches, rate = timed_train(
+        f"distill MTD_stu ({ACCUM} x {B // ACCUM})", step, state, batch,
+        params, cfg, moving, teacher_step, card)
+    paths = {"distill": launches}
+    print(f"distill MTD_stu {rate:.2f} samples/s beside train "
+          f"{RATES.get(f'train ({ACCUM} x {B // ACCUM})', float('nan')):.2f}"
+          f" [{card}]", flush=True)
+
+    # one more step: the teacher moved by the EMA rule toward the updated
+    # student fusion, every frozen leaf bit-unchanged
+    old = finetune.tree_map(torch.clone, state.teacher_fusion)
+    frozen = [(t, t.clone()) for t, lab in zip(
+        leaves(params), leaves(param_labels(params, cfg))) if lab == FROZEN]
+    state, _ = step(state, *batch)
+    want = [w * EMA_DECAY + s * (1.0 - EMA_DECAY)
+            for w, s in zip(leaves(old), leaves(params["fusion"]))]
+    err = max((t - w).abs().max().item()
+              for t, w in zip(leaves(state.teacher_fusion), want))
+    # the error in units of f32 rounding of each element's terms
+    f32 = torch.finfo(torch.float32)
+    ulps = max(((t - w).abs() / (f32.eps * (o.abs() * EMA_DECAY + s.abs()
+                                            * (1.0 - EMA_DECAY)) + f32.tiny))
+               .max().item()
+               for t, w, o, s in zip(leaves(state.teacher_fusion), want,
+                                     leaves(old), leaves(params["fusion"])))
+    moved = max((t - o).abs().max().item() for t, o in zip(
+        leaves(state.teacher_fusion), leaves(old)))
+    changed = sum(not torch.equal(t, t0) for t, t0 in frozen)
+    print(f"distill EMA: teacher vs old * {EMA_DECAY} + student * "
+          f"{1 - EMA_DECAY:.3f}: max abs err {err:.3e}, {ulps:.2f} units of "
+          f"f32 rounding (limit {EMA_ULPS}), "
+          f"the teacher moved by up to {moved:.3e}; {len(frozen)} frozen "
+          f"leaves, {changed} changed", flush=True)
+    if not (ulps <= EMA_ULPS and moved > 0 and changed == 0):
+        raise AssertionError("the EMA teacher or the frozen leaves are off")
+    teacher = state.teacher_fusion
+    del state, step, old, want, frozen
+
+    for ftype, expect in (("KL_stu", teacher_step),
+                          ("self_distill", dict(
+                              attention=n_vision * ACCUM,
+                              attention_bwd=n_vision * ACCUM,
+                              causal_attention=n_text * ACCUM))):
+        fcfg = dataclasses.replace(
+            cfg, fusion=dataclasses.replace(cfg.fusion, fusion_type=ftype))
+        state, tx = init_train_state(
+            params, fcfg,
+            teacher_fusion=teacher if ftype == "KL_stu" else None)
+        step = make_train_step(fcfg, tx, accum_steps=ACCUM, device=dev)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        state, m = step(state, *batch)
+        loss = m["loss"].item()
+        dt = time.perf_counter() - t0
+        got = dict(K.LAUNCHES)
+        want_l = dict(dict.fromkeys(got, 0), **expect)
+        print(f"distill {ftype}: one step of B={B} in {dt:.4f} s, loss "
+              f"{loss:.4f}, launches {got}", flush=True)
+        if got != want_l or not math.isfinite(loss):
+            raise AssertionError(f"distill {ftype}: launches {got}, expected "
+                                 f"{want_l}; loss {loss}")
+        paths[f"distill {ftype}"] = got
+        del state, tx, step
+    return paths
+
+
+class ArrayLoader:
+    """(data, labels, missing) batches of `batch_size` rows sliced from
+    in-memory arrays (media and ids as tensors on the card, labels and codes
+    as numpy); the last batch may be partial."""
+
+    def __init__(self, data, labels, missing, batch_size):
+        self.data, self.labels, self.missing = data, labels, missing
+        self.batch_size = batch_size
+
+    def __iter__(self):
+        def rows(tree, sl):
+            return ({k: rows(v, sl) for k, v in tree.items()}
+                    if isinstance(tree, dict) else tree[sl])
+
+        for i in range(0, len(self.labels), self.batch_size):
+            sl = slice(i, i + self.batch_size)
+            yield rows(self.data, sl), self.labels[sl], self.missing[sl]
+
+
+def sweep_phase(dev, rng, card, profile):
+    """The flagship model with the concat head and a bf16 encoder through
+    run_missing_sweep(concat_mean): the statistics pass over 2 x 64 train
+    rows, then missing types x ratios, each a batch of 64 and a partial
+    batch of 37 with codes from simulate_missing_modality. Checks the
+    launches per batch, 9 finite report blocks, and that the statistics
+    the sweep's pass computes are non-zero and the ones it evaluated with."""
+    from missm_tpu_torch.data.missing import simulate_missing_modality
+    from missm_tpu_torch.eval.sweep import (evaluate_loader,
+                                            run_missing_sweep,
+                                            statistics_pass)
+    from missm_tpu_torch.kernels import attention as K
+    from missm_tpu_torch.metrics import compute_metrics
+    from missm_tpu_torch.models import finetune
+    from missm_tpu_torch.models.fusion import set_statistics
+    from missm_tpu_torch.train.step import make_eval_step
+
+    cfg = flagship_config("bfloat16", fusion_type="concat")
+    params = finetune.init_model_params(cfg, seed=0, device=dev)
+    params = {"encoder": finetune.cast_tree(params["encoder"], torch.bfloat16),
+              "fusion": params["fusion"]}
+    size = cfg.towers[0][1].vision.image_size
+
+    def arrays(n):
+        ids, mask = text_batch(rng, n, vary_length=True)
+        return ({"language": {"input_ids": torch.as_tensor(ids, device=dev),
+                              "attention_mask": torch.as_tensor(mask,
+                                                                device=dev)},
+                 "image": torch.as_tensor(rng.standard_normal(
+                     (n, 3, *size)).astype(np.float32), device=dev)
+                 .to(torch.bfloat16)}, rng.integers(0, 10, n))
+
+    train_data, train_labels = arrays(SWEEP_TRAIN_ROWS)
+    train = ArrayLoader(train_data, train_labels,
+                        np.zeros(SWEEP_TRAIN_ROWS, np.int64), B)
+    data, labels = arrays(SWEEP_ROWS)
+    modal = ["language", "image", "mixed"]
+    test = {mt: {r: ArrayLoader(data, labels, np.asarray(
+        simulate_missing_modality(SWEEP_ROWS, mt, r, modal)), B)
+        for r in SWEEP_RATIOS} for mt in SWEEP_TYPES}
+    eval_step = make_eval_step(cfg, device=dev)
+    eval_step(params, *next(iter(test["mixed"][0.9])))  # warm-up
+    torch.cuda.synchronize()
+
+    n_vision, n_text = layers(cfg)
+    with tempfile.TemporaryDirectory() as out:
+        K.reset_launches()
+        t0 = time.perf_counter()
+        results = run_missing_sweep(params, cfg, eval_step, test, out,
+                                    "flagship", "concat_mean",
+                                    train_loader=train, verbose=False,
+                                    device=dev)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        blocks = []
+        for mt in SWEEP_TYPES:
+            with open(os.path.join(out, f"flagship_concat_mean_{mt}.txt"),
+                      encoding="utf-8") as f:
+                blocks += [b for b in f.read().split("\n\n") if b]
+    batches = COVERS["sweep"]
+    want = dict(dict.fromkeys(launches, 0), attention=n_vision * batches,
+                causal_attention=n_text * batches)
+    numbers = [float(line.rsplit(": ", 1)[1]) for b in blocks
+               for line in b.splitlines()[2:]]
+    rows = len(SWEEP_TYPES) * len(SWEEP_RATIOS) * SWEEP_ROWS
+    print(f"sweep concat_mean: {len(blocks)} report blocks, "
+          f"{rows} test rows + {SWEEP_TRAIN_ROWS} train rows in {dt:.4f} s "
+          f"= {(rows + SWEEP_TRAIN_ROWS) / dt:.2f} samples/s ({batches} "
+          f"batches, {dt / batches * 1e3:.3f} ms a batch); launches "
+          f"{launches}; metrics "
+          + "; ".join(f"{mt} {r}: acc {m['accuracy']:.4f} auc "
+                      f"{m['auc']:.4f} loss {m['loss']:.4f}"
+                      for mt, per in results.items()
+                      for r, m in per.items()) + f" [{card}]", flush=True)
+    if (launches != want or len(blocks) != len(SWEEP_TYPES)
+            * len(SWEEP_RATIOS) or len(numbers) != 4 * len(blocks)
+            or not all(math.isfinite(x) for x in numbers)):
+        raise AssertionError(f"sweep: launches {launches} (expected {want}), "
+                             f"{len(blocks)} blocks, numbers {numbers}")
+
+    # the statistics the sweep's pass computes, recomputed: non-zero, and
+    # the sweep's (mixed, 0.9) metrics are the ones they give
+    stats = statistics_pass(params, cfg, train, "mean", device=dev)
+    filled = dict(params, fusion=set_statistics(params["fusion"], stats))
+    _, lab, preds, probs = evaluate_loader(filled, eval_step,
+                                           test["mixed"][0.9])
+    again = compute_metrics(lab, preds, probs)
+    norms = {m: float(np.linalg.norm(v)) for m, v in stats.items()}
+    same = all(again[k] == results["mixed"][0.9][k]
+               for k in ("accuracy", "f1", "auc"))
+    print(f"sweep statistics: norms {norms}; the (mixed, 0.9) metrics "
+          f"{'equal' if same else 'differ from'} a pass with them", flush=True)
+    if not (all(n > 0 and math.isfinite(n) for n in norms.values())
+            and same):
+        raise AssertionError("sweep statistics empty or not the sweep's")
+    return {"sweep": launches}
+
+
 def probes_phase(dev):
     """Every probe once, every count from 0 (missm_tpu_torch.probes): the
     ln_linear probe (the 24-layer image stack at B=64, forward and forward
@@ -1822,12 +2163,18 @@ def main() -> int:
     t0 = time.perf_counter()
     paths["probes"], ablation = probes_phase(dev)
     print(f"phase probes: {time.perf_counter() - t0:.1f} s", flush=True)
+    # each returns its launch counts by path
+    for path, phase in (("heads", heads_phase), ("distill", distill_phase),
+                        ("sweep", sweep_phase)):
+        t0 = time.perf_counter()
+        paths.update(phase(dev, rng, card, args.profile))
+        print(f"phase {path}: {time.perf_counter() - t0:.1f} s", flush=True)
     for row in rows:
         # launches: over the counted steps of every path that runs it, and
         # the probes' stacks (a P4 row: its own mode's ablation arm)
         kernel = row.get("counter", row["name"])
         row["launches"] = sum(p[kernel] for p in paths.values())
-        row["launches_per_step"] = {path: p[kernel] // STEPS
+        row["launches_per_step"] = {path: p[kernel] // COVERS.get(path, STEPS)
                                     for path, p in paths.items()
                                     if p[kernel] and path != "probes"}
         if "arm" in row:

@@ -42,11 +42,12 @@ class ModelConfig:
 
 
 def tree_map(fn, tree):
-    """fn applied to every tensor of a param tree of dicts and lists."""
+    """fn applied to every leaf of a tree of dicts, lists and tuples (a
+    param tree, or a batch)."""
     if isinstance(tree, Mapping):
         return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
 
 

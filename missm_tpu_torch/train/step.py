@@ -8,6 +8,13 @@ added to the gradient and bias-corrected moments are optax's
 `add_decayed_weights` + `scale_by_adam`. Unlike the JAX step, which returns
 new arrays, this one updates the param tensors and the optimizer state in
 place: the returned state holds the same tensors.
+
+Teacher semantics (MTD_stu, KL_stu), as in the JAX package: the teacher
+shares the student's encoder, so only its fusion params are its own
+(`TrainState.teacher_fusion`). Its forward runs inside every microbatch
+under `torch.no_grad()`, with every modality present and in eval mode, and
+for MTD_stu the step ends with the EMA update of the teacher's fusion
+params toward the student's (decay 0.999).
 """
 from __future__ import annotations
 
@@ -18,15 +25,19 @@ import torch
 
 from ..core.device import resolve_device
 from ..models.finetune import ModelConfig, model_forward, tree_map
-from .losses import cross_entropy, per_sample_cross_entropy
+from .losses import (cross_entropy, kl_distill_loss, masked_kl_distill,
+                     masked_mse_loss, mse_loss, per_sample_cross_entropy)
 from .trainability import TRAIN, leaves, param_labels
+
+TEACHER_TYPES = ("MTD_stu", "KL_stu")
+EMA_DECAY = 0.999  # MTD_stu's teacher
 
 
 @dataclasses.dataclass
 class TrainState:
     params: Any
     opt_state: Any      # the optimizer's per-parameter state (tx.state)
-    teacher_fusion: Any  # None unless MTD_stu / KL_stu (not ported yet)
+    teacher_fusion: Any  # None unless MTD_stu / KL_stu; never requires_grad
     step: int
 
 
@@ -63,29 +74,79 @@ def make_optimizer(params, cfg: ModelConfig, *, b1=0.9, b2=0.999, eps=1e-8,
 
 def init_train_state(params, cfg: ModelConfig, *, weight_decay: float = 0.0,
                      teacher_fusion=None):
-    """(TrainState, tx) with tx the torch.optim.Adam of make_optimizer."""
+    """(TrainState, tx) with tx the torch.optim.Adam of make_optimizer. The
+    state holds a detached copy of `teacher_fusion`: the step updates it in
+    place, and it must share no storage with the student's params."""
     tx = make_optimizer(params, cfg, weight_decay=weight_decay)
+    if teacher_fusion is not None:
+        teacher_fusion = tree_map(lambda t: t.detach().clone(),
+                                  teacher_fusion)
     return TrainState(params=params, opt_state=tx.state,
                       teacher_fusion=teacher_fusion, step=0), tx
 
 
 def compute_loss(params, teacher_fusion, cfg: ModelConfig, data, labels,
                  missing_index, generator, valid=None, *, device="cuda"):
-    """(loss, logits): cross-entropy, masked to the `valid` rows (a boolean
-    [B] mask of rows a fixed-shape batcher did not pad in) when given. The
-    distillation losses of MTD_stu, KL_stu and self_distill wait for their
-    fusion heads."""
+    """(loss, logits): cross-entropy plus the fusion type's distillation
+    term, every term masked to the `valid` rows (a boolean [B] mask of rows
+    a fixed-shape batcher did not pad in) when given.
+
+    MTD_stu / KL_stu: the MSE / KL between the student's and the teacher's
+    distillation features; the teacher (the student's encoder and
+    `teacher_fusion`) runs under no_grad with every modality present and in
+    eval mode. self_distill: 0.01 times the mean over modalities of the
+    masked KL between each present modality's student view and the
+    teacher's features."""
     ft = cfg.fusion.fusion_type
-    if ft in ("MTD_stu", "KL_stu", "self_distill"):
-        raise NotImplementedError(f"the {ft} loss is not ported yet")
-    logits, _ = model_forward(params, cfg, data, missing_index, train=True,
-                              generator=generator, device=device)
+    logits, aux = model_forward(params, cfg, data, missing_index, train=True,
+                                generator=generator, device=device)
     labels = torch.as_tensor(labels, device=logits.device)
+    missing_index = torch.as_tensor(missing_index, device=logits.device)
     if valid is None:
-        return cross_entropy(logits, labels), logits
-    nll = per_sample_cross_entropy(logits, labels)
-    w = torch.as_tensor(valid, device=logits.device).to(nll.dtype)
-    return (nll * w).sum() / torch.clamp(w.sum(), min=1.0), logits
+        ce = cross_entropy(logits, labels)
+    else:
+        valid = torch.as_tensor(valid, device=logits.device)
+        nll = per_sample_cross_entropy(logits, labels)
+        w = valid.to(nll.dtype)
+        ce = (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+    if ft in TEACHER_TYPES:
+        with torch.no_grad():
+            _, tea_aux = model_forward(
+                {"encoder": params["encoder"], "fusion": teacher_fusion},
+                cfg, data, torch.zeros_like(missing_index), train=False,
+                device=device)
+        rep_s, rep_t = aux["features"], tea_aux["features"]
+        if valid is None:
+            dl = (mse_loss(rep_s, rep_t) if ft == "MTD_stu"
+                  else kl_distill_loss(rep_s, rep_t))
+        else:
+            dl = (masked_mse_loss(rep_s, rep_t, valid) if ft == "MTD_stu"
+                  else masked_kl_distill(rep_s, rep_t, valid))
+        return dl + ce, logits
+
+    if ft == "self_distill":
+        present = aux["present_masks"]                    # [B, M]
+        stu = aux["stu_features"]                         # [B, M, D]
+        tea = aux["tea_features"]                         # [B, D]
+        M = present.shape[1]
+        dl = 0.0
+        for i in range(M):
+            mask = present[:, i] if valid is None else present[:, i] & valid
+            dl = dl + masked_kl_distill(stu[:, i], tea, mask)
+        return 0.01 * dl / M + ce, logits
+
+    return ce, logits
+
+
+def _ema(teacher, student):
+    """teacher = teacher * d + student * (1 - d) in place, leaf by leaf,
+    paired by key; in f32, as JAX's t * d + s * (1 - d) rounds."""
+    if isinstance(teacher, Mapping):
+        for k, t in teacher.items():
+            _ema(t, student[k])
+    else:
+        teacher.mul_(EMA_DECAY).add_(student, alpha=1.0 - EMA_DECAY)
 
 
 def _rows(data, sl):
@@ -104,17 +165,25 @@ def make_train_step(cfg: ModelConfig, tx, accum_steps: int = 1, *,
     after another, each drawing its dropout from `generator` in turn, and
     takes one Adam update. Each microbatch's loss is a mean over its valid
     rows; it is weighted by that row count over the total, so the step
-    equals the full-batch masked mean (missm_tpu/train/step.py:185-205). A
-    batch that A does not divide raises."""
+    equals the full-batch masked mean (missm_tpu/train/step.py:185-205);
+    self_distill's masked KL, whose normaliser is per microbatch, becomes
+    the same count-weighted mean of microbatch means, as in JAX. A batch
+    that A does not divide raises.
+
+    MTD_stu and KL_stu need `state.teacher_fusion`; MTD_stu ends each step
+    with the teacher's EMA update, t = t * 0.999 + s * 0.001 over the
+    fusion params, in place."""
     dev = resolve_device(device)
-    if cfg.fusion.fusion_type in ("MTD_stu", "KL_stu"):
-        raise NotImplementedError("the EMA teacher is not ported yet")
+    ft = cfg.fusion.fusion_type
 
     def step_fn(state: TrainState, data, labels, missing_index, lr,
                 generator, valid=None):
         treedef, trainable, frozen = partition_trainable(state.params, cfg)
         params = combine_params(treedef, trainable, frozen)
         train = [p for p in trainable if p is not None]
+        if ft in TEACHER_TYPES and state.teacher_fusion is None:
+            raise ValueError(f"{ft} trains against a teacher: pass "
+                             "init_train_state(teacher_fusion=...)")
         labels = torch.as_tensor(labels, device=dev)
         missing_index = torch.as_tensor(missing_index, device=dev)
         if valid is not None:
@@ -161,6 +230,9 @@ def make_train_step(cfg: ModelConfig, tx, accum_steps: int = 1, *,
         for group in tx.param_groups:
             group["lr"] = lr
         tx.step()
+        if ft == "MTD_stu":
+            with torch.no_grad():
+                _ema(state.teacher_fusion, state.params["fusion"])
         return TrainState(params=state.params, opt_state=tx.state,
                           teacher_fusion=state.teacher_fusion,
                           step=state.step + 1), {"loss": loss}

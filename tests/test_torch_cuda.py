@@ -15,8 +15,10 @@ from missm_tpu_torch.kernels import ln_linear as lnl
 from missm_tpu_torch.kernels import mlp_bwd
 from missm_tpu_torch.kernels import probe_attention as pa
 from missm_tpu_torch.models import finetune
-from missm_tpu_torch.models.fusion import FusionConfig
-from missm_tpu_torch.train.step import init_train_state, make_train_step
+from missm_tpu_torch.models.fusion import (FUSION_TYPES, FusionConfig,
+                                            fusion_forward, init_fusion)
+from missm_tpu_torch.train.step import (EMA_DECAY, init_train_state,
+                                        make_train_step)
 from missm_tpu_torch.train.trainability import leaves
 
 pytestmark = pytest.mark.cuda
@@ -1150,3 +1152,119 @@ def test_probe_kernels_reject_what_they_do_not_take(cuda):
                               device=cuda)
         with pytest.raises(ValueError):
             pa.attn_probe_fused(longest, longest, longest)            # N
+
+
+# ---------------------------------------------------------------------------
+# The fusion heads and the distillation step (plain PyTorch on the card)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("ftype", FUSION_TYPES)
+def test_head_on_the_card_matches_the_cpu(cuda, monkeypatch, ftype):
+    """Every head's f32 logits and the gradient of their sum with respect
+    to every head param, card (TF32 off) against the CPU, codes rotating
+    over {0, 1, 2, 3}; no kernel launches. Gradients: ||err|| / ||ref||
+    per leaf, ||ref|| taken as at least 1e-3 of the head's largest
+    gradient norm (a zero or cancelling gradient holds float noise of the
+    size of the larger sums)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = FusionConfig(fusion_type=ftype,
+                       modality_types=("language", "video", "audio"),
+                       output_dims=10, feature_dims=48, fusion_dim=32)
+    params = init_fusion(torch.Generator().manual_seed(0), cfg)
+    gen = torch.Generator().manual_seed(1)
+    embeds = {m: torch.randn(12, 48, generator=gen)
+              for m in cfg.modality_types}
+    codes = torch.arange(12) % 4
+
+    def run(device):
+        p = finetune.tree_map(
+            lambda t: t.detach().to(device, copy=True).requires_grad_(),
+            params)
+        logits, _ = fusion_forward(
+            p, cfg, {m: e.to(device) for m, e in embeds.items()},
+            codes.to(device))
+        logits.sum().backward()
+        return logits.detach().cpu(), [t.grad.cpu() for t in leaves(p)]
+
+    ref, grads_cpu = run("cpu")
+    kernels.reset_launches()
+    got, grads_gpu = run(cuda)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == _counts()
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    floor = 1e-3 * max(w.norm() for w in grads_cpu)
+    for i, (x, w) in enumerate(zip(grads_gpu, grads_cpu)):
+        assert (x - w).norm() <= 1e-4 * max(w.norm(), floor), i
+
+
+def _tiny_distill(device, monkeypatch):
+    """One accum-2 MTD_stu step of the tiny image+text model in f32 with a
+    teacher: (loss, the trainable leaves' gradients, the teacher after the
+    EMA update, the teacher before it, the updated student fusion)."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    fusion = dict(modality_types=("language", "image"), output_dims=3,
+                  feature_dims=24, fusion_dim=16, dropout_prob=0.0)
+    cfg = finetune.ModelConfig(
+        towers=(("image", tiny_tower("image")),),
+        fusion=FusionConfig(fusion_type="MTD_stu", **fusion))
+    params = finetune.init_model_params(cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    for block in params["encoder"]["image"]["vision"]["blocks"]:
+        for proj in block["attn"].values():
+            proj["lora_b"].normal_(0.0, 0.05, generator=gen)
+    teacher = init_fusion(gen, FusionConfig(fusion_type="Distill_tea",
+                                            **fusion))
+    params = finetune.tree_map(lambda t: t.to(device), params)
+    teacher = finetune.tree_map(lambda t: t.to(device), teacher)
+    state, tx = init_train_state(params, cfg, teacher_fusion=teacher)
+    old = [t.clone() for t in leaves(state.teacher_fusion)]
+    step = make_train_step(cfg, tx, accum_steps=2, device=device)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(1, 98, size=(4, 16)).astype(np.int32)
+    ids[:, 9] = 98
+    data = {"language": {"input_ids": ids,
+                         "attention_mask": (np.arange(16) < 12)[None].repeat(
+                             4, 0).astype(np.int32)},
+            "image": rng.standard_normal((4, 3, 32, 32)).astype(np.float32)}
+    state, m = step(state, data, np.array([0, 1, 2, 0]),
+                    np.array([0, 1, 4, 0]), 1e-3,
+                    torch.Generator(device=device).manual_seed(0),
+                    np.array([True, True, True, False]))
+    return (float(m["loss"]), [t.grad.cpu() for t in leaves(params)
+                               if t.grad is not None],
+            [t.cpu() for t in leaves(state.teacher_fusion)],
+            [t.cpu() for t in old], [t.cpu() for t in leaves(params["fusion"])])
+
+
+def test_tiny_distill_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """One MTD_stu step with a padded row: the card's loss, gradients and
+    EMA teacher against the CPU's, and the launches of the student's and
+    the teacher's forwards."""
+    loss_cpu, grads_cpu, teacher_cpu, _, _ = _tiny_distill("cpu", monkeypatch)
+    kernels.reset_launches()
+    loss_gpu, grads_gpu, teacher_gpu, old, student = _tiny_distill(
+        cuda, monkeypatch)
+    torch.cuda.synchronize()
+    # 2 layers per tower, 2 microbatches, a student and a teacher forward
+    # each; N = 5 image tokens: the unsplit route
+    assert kernels.LAUNCHES == _counts(attention_unsplit=8,
+                                       attention_unsplit_bwd=4,
+                                       causal_attention=8)
+    assert loss_gpu == pytest.approx(loss_cpu, rel=1e-5)
+    assert len(grads_gpu) == len(grads_cpu)
+    for i, (x, w) in enumerate(zip(grads_gpu, grads_cpu)):
+        assert _rel(x, w) <= 1e-4 or (w.norm() < 1e-8 and x.norm() < 1e-8), i
+    for x, w in zip(teacher_gpu, teacher_cpu, strict=True):
+        torch.testing.assert_close(x, w, atol=1e-7, rtol=0)
+    # the card's teacher is the rule applied to the card's updated student,
+    # within 4 units of f32 rounding of the rule's terms; the EMA taken
+    # toward the student before its Adam step would be off by up to
+    # (1 - decay) x lr = 1e-6
+    eps = torch.finfo(torch.float32).eps
+    for t, o, s in zip(teacher_gpu, old, student, strict=True):
+        terms = o.abs() * EMA_DECAY + s.abs() * (1.0 - EMA_DECAY)
+        assert ((t - (o * EMA_DECAY + s * (1.0 - EMA_DECAY))).abs()
+                <= 4 * eps * terms).all()

@@ -200,6 +200,11 @@ def test_missing_masks_match_jax():
     jm = jfusion.missing_masks(jcfg, jnp.asarray(codes))
     for m in modalities:
         np.testing.assert_array_equal(tm[m].numpy(), np.asarray(jm[m]))
-    with pytest.raises(NotImplementedError):
+    # every head is ported: concat initialises, and an unknown type raises
+    # as the JAX dispatch does
+    concat = tfusion.init_fusion(
+        torch.Generator(), FusionConfig("concat", modalities, output_dims=3))
+    assert set(concat["statistics"]) == set(modalities)
+    with pytest.raises(KeyError):
         tfusion.init_fusion(torch.Generator(),
-                            FusionConfig("concat", modalities, output_dims=3))
+                            FusionConfig("nope", modalities, output_dims=3))
