@@ -116,7 +116,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 launches per batch, 9 finite report blocks read back, and
                 that the statistics the pass computes are non-zero and the
                 ones the sweep evaluated with; prints sweep samples/s.
- 13. summary  - a `{"kernels": [...]}` line, the card's name and power limit,
+ 13. data     - the data layer: a mvsa-style tree written to a temporary
+                directory (label.csv, missing_index.pkl from the ported
+                generate_missing_index, 128 train, 64 valid and 136 test
+                rows, one seeded JPEG a row at 375x500, 480x640, 720x1280
+                or 500x333) through the port's testing_loader (HashTokenizer,
+                PIL decode on 8 threads, image_transform on the card) into
+                the sweep's model and run_missing_sweep(concat_mean): 3
+                missing types x 10 loaders of 64 + 64 + 8 rows and the
+                statistics pass over the 128 train rows; checks K1 24 and
+                K2(a) 12 launches per batch and 30 finite report blocks and
+                prints rows/s. Then two train steps of the flagship `sum`
+                model (4 x 16) on training_loader's batches with train-time
+                missing codes: K1 96, K3 96, K2(a) 48 a step, finite losses,
+                watched leaves moved, frozen ones not. Checks that the disk
+                batches equal the same loaders' batches built on the CPU
+                (ids, masks, labels and codes exactly, images within 2e-4 +
+                1e-4 |ref|), that image_transform (each photo size),
+                video_transform ([8, 360, 640, 3], flip off and on) and
+                depth_transform (max_depth 10 and 0) on the card agree with
+                the CPU within the same limit, and that audio_model_input on
+                the card (10 s and 15 s WAVs, 112 bins x 1036 frames) agrees
+                with the numpy host path within 2e-3 + 1e-4 |ref|; that
+                the image, depth and audio media loaders built for the card
+                give samples there, within those limits of the CPU's; and
+                that image_transform over 64 distinct source sizes holds no
+                card memory after; prints the card ms a sample of each
+                transform and that run's peak memory.
+ 14. summary  - a `{"kernels": [...]}` line, the card's name and power limit,
                 and as the last line {"ok": true, "device": {...}}.
 --profile adds one torch.profiler-traced step of each of eval, train, eval3,
 train3, ln2fc1 eval and ln2fc1 train and prints device time by kernel.
@@ -183,10 +210,23 @@ SWEEP_TYPES = ("language", "image", "mixed")
 SWEEP_RATIOS = (0.1, 0.5, 0.9)
 SWEEP_ROWS = 101                        # a batch of 64 and a partial of 37
 SWEEP_TRAIN_ROWS = 2 * B
+# data: a mvsa-style tree on disk, its photos at the shapes of real MVSA
+# photos; 10 loaders a missing type (the nine ratios and the complete set)
+DATA_SPLITS = {"train": 2 * B, "valid": B, "test": 2 * B + 8}
+DATA_SIZES = ((375, 500), (480, 640), (720, 1280), (500, 333))
+DATA_WORKERS = 8                        # the card machine's cores
+# card against CPU: the images and the device transforms as
+# tests/test_host_transforms.py:35-56 holds the JAX package's two transform
+# paths to each other; the audio model input as its line 77 does
+DATA_TOL = dict(atol=2e-4, rtol=1e-4)
+AUDIO_TOL = dict(atol=2e-3, rtol=1e-4)
 # batches a path's launch counts cover, where they are not STEPS steps
 COVERS = {"distill KL_stu": 1, "distill self_distill": 1,
           "sweep": (len(SWEEP_TYPES) * len(SWEEP_RATIOS) * -(-SWEEP_ROWS // B)
-                    + SWEEP_TRAIN_ROWS // B)}
+                    + SWEEP_TRAIN_ROWS // B),
+          "data sweep": (len(SWEEP_TYPES) * 10 * -(-DATA_SPLITS["test"] // B)
+                         + DATA_SPLITS["train"] // B),
+          "data train": DATA_SPLITS["train"] // B}
 RATES = {}                              # samples/s by timed_train's name
 
 
@@ -1970,6 +2010,385 @@ def sweep_phase(dev, rng, card, profile):
     return {"sweep": launches}
 
 
+def write_mvsa_tree(root, rng, classes=10):
+    """root/label.csv with DATA_SPLITS rows, root/missing_index.pkl (the
+    port's generate_missing_index) and one seeded JPEG a row under
+    root/data: a smooth colour field (a coarse random grid, bilinearly
+    upsampled) at a size drawn from DATA_SIZES. Every class occurs.
+    Returns the csv path."""
+    from PIL import Image
+
+    from missm_tpu_torch.data.missing import (generate_missing_index,
+                                              save_missing_index)
+
+    n = sum(DATA_SPLITS.values())
+    modes = [m for m, k in DATA_SPLITS.items() for _ in range(k)]
+    labels = rng.permutation(np.arange(n) % classes)
+    words = [f"w{i}" for i in range(500)]
+    os.makedirs(os.path.join(root, "data"))
+    with open(os.path.join(root, "label.csv"), "w") as f:
+        f.write("ID,language,annotation,mode\n")
+        for i in range(n):
+            text = " ".join(rng.choice(words, rng.integers(3, 60)))
+            f.write(f"{i},{text},class{labels[i]},{modes[i]}\n")
+            h, w = DATA_SIZES[rng.integers(len(DATA_SIZES))]
+            coarse = rng.integers(0, 256, (h // 32 + 2, w // 32 + 2, 3),
+                                  dtype=np.uint8)
+            Image.fromarray(coarse).resize(
+                (w, h), Image.Resampling.BILINEAR).save(
+                os.path.join(root, "data", f"{i}.jpg"), quality=90)
+    save_missing_index(os.path.join(root, "missing_index.pkl"),
+                       generate_missing_index(DATA_SPLITS,
+                                              ["language", "image"]))
+    return os.path.join(root, "label.csv")
+
+
+def data_args(**kw):
+    """The test/train entry points' args for the mvsa tree."""
+    return argparse.Namespace(**dict(dict(
+        datasetName="mvsa", fusion_type="concat", train_missing=False,
+        batch_size=B, num_workers=DATA_WORKERS,
+        test_missing_type=list(SWEEP_TYPES)), **kw))
+
+
+def data_tokenizer(cfg):
+    """HashTokenizer with the text tower's vocab and context, as
+    missm_tpu/cli/common.py:120-133 sets it up."""
+    from missm_tpu_torch.data.tokenizer import HashTokenizer
+
+    text = cfg.towers[0][1].text
+    return HashTokenizer(text.vocab_size, text.max_position_embeddings)
+
+
+def same_batches(name, dev, card, cpu):
+    """Two lists of loader batches, the first with its images on `dev`, the
+    second on the CPU: ids, masks, labels and codes exactly equal, the
+    images within DATA_TOL. Returns the largest image difference."""
+    worst = 0.0
+    if len(card) != len(cpu):
+        raise AssertionError(f"{name}: {len(card)} batches vs {len(cpu)}")
+    for (cd, cl, cm), (wd, wl, wm) in zip(card, cpu):
+        for k in ("input_ids", "attention_mask"):
+            np.testing.assert_array_equal(cd["language"][k], wd["language"][k])
+        np.testing.assert_array_equal(cl, wl)
+        np.testing.assert_array_equal(cm, wm)
+        got, want = cd["image"].cpu(), wd["image"]
+        if cd["image"].device.type != dev.type or want.device.type != "cpu":
+            raise AssertionError(f"{name}: images on {cd['image'].device} "
+                                 f"and {want.device}")
+        torch.testing.assert_close(got, want, **DATA_TOL)
+        worst = max(worst, (got - want).abs().max().item())
+    return worst
+
+
+def transform_checks(dev, rng, card):
+    """Each device transform on the card against the same call on the CPU
+    (image at each photo size, video [8, 360, 640, 3] with the flip off and
+    on, depth with max_depth 10 and 0), and the audio model input of a 10 s
+    (tile) and a 15 s (chunks) WAV on the card against the numpy host path,
+    at languagebind_large audio's 112 bins x 1036 frames; then
+    loader_checks and transform_memory. Prints the largest difference and
+    the card's ms a sample of each (a smoke reading: CUDA events around 10
+    calls, the host-to-card copies of the source and of the resize
+    matrices included)."""
+    import wave
+
+    from missm_tpu_torch.core.config import languagebind_large
+    from missm_tpu_torch.data import ingest_io
+    from missm_tpu_torch.ops.image_transforms import (depth_transform,
+                                                      image_transform,
+                                                      video_transform)
+    from missm_tpu_torch.ops.melfbank import (FbankConfig, audio_model_input,
+                                              audio_model_input_host,
+                                              chunk_ranges, num_frames)
+
+    cases = [(f"image {h}x{w}", image_transform,
+              (rng.integers(0, 256, (h, w, 3), dtype=np.uint8), 224), {})
+             for h, w in DATA_SIZES]
+    frames = rng.integers(0, 256, (8, 360, 640, 3), dtype=np.uint8)
+    raw = rng.integers(0, 12000, (480, 640)).astype(np.float32)
+    cases += [(f"video 8x360x640 flip {f}", video_transform, (frames, 224),
+               dict(flip=f)) for f in (False, True)]
+    cases += [(f"depth 480x640 max_depth {m}", depth_transform, (raw, 224),
+               dict(max_depth=m)) for m in (10.0, 0.0)]
+    lines = []
+    for name, fn, args, kw in cases:
+        got = fn(*args, **kw, device=dev)
+        want = fn(*args, **kw, device="cpu")
+        torch.testing.assert_close(got.cpu(), want, **DATA_TOL)
+        ms = median_ms(lambda: fn(*args, **kw, device=dev), reps=5, iters=10)
+        lines.append(f"{name} {ms:.4f} ms (max |card - cpu| "
+                     f"{(got.cpu() - want).abs().max().item():.2e})")
+
+    tower = languagebind_large("audio")
+    fb = FbankConfig(sample_rate=tower.audio_sample_rate,
+                     num_mel_bins=tower.num_mel_bins)
+    with tempfile.TemporaryDirectory() as tmp:
+        for seconds in (10, 15):
+            path = os.path.join(tmp, f"{seconds}.wav")
+            pcm = (rng.standard_normal(16000 * seconds) * 4000).astype("<i2")
+            with wave.open(path, "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(16000)
+                w.writeframes(pcm.tobytes())
+            wav, _ = ingest_io.read_audio(path)
+            wav = wav - wav.mean()
+            frames_n = num_frames(len(wav), fb)
+            idx = ((0, 0, 0) if frames_n <= tower.target_length else
+                   tuple(int(r[0]) for r in chunk_ranges(
+                       frames_n, tower.target_length)))
+            args = (wav, fb, tower.target_length, idx, tower.audio_mean,
+                    tower.audio_std)
+            got = audio_model_input(*args, device=dev)
+            want = torch.from_numpy(audio_model_input_host(*args))
+            if got.shape != (3, 112, 1036):
+                raise AssertionError(f"audio {seconds} s: {got.shape}")
+            torch.testing.assert_close(got.cpu(), want, **AUDIO_TOL)
+            ms = median_ms(lambda: audio_model_input(*args, device=dev),
+                           reps=5, iters=10)
+            lines.append(f"audio {seconds} s ({frames_n} frames) {ms:.4f} ms "
+                         f"(max |card - host| "
+                         f"{(got.cpu() - want).abs().max().item():.2e})")
+        lines.append(loader_checks(dev, rng, tmp, tower))
+    lines.append(transform_memory(dev, rng))
+    print("data transforms, card ms a sample (smoke readings) and agreement "
+          "with the CPU: " + "; ".join(lines) + f" [{card}]", flush=True)
+
+
+def loader_checks(dev, rng, tmp, audio_tower):
+    """The production media loaders of image (a JPEG), depth (a 16-bit PNG)
+    and audio (tmp's 15 s WAV), built for the card and for the CPU: each
+    sample a tensor on its loader's device, the card's within DATA_TOL
+    (AUDIO_TOL for audio) of the CPU's."""
+    from PIL import Image
+
+    from missm_tpu_torch.core.config import languagebind_large
+    from missm_tpu_torch.data.preprocess import make_media_loaders
+
+    paths = {"image": os.path.join(tmp, "i.jpg"),
+             "depth": os.path.join(tmp, "d.png"),
+             "audio": os.path.join(tmp, "15.wav")}
+    Image.fromarray(rng.integers(0, 256, (375, 500, 3), dtype=np.uint8)
+                    ).save(paths["image"], quality=90)
+    Image.fromarray(rng.integers(0, 12000, (480, 640), dtype=np.uint16)
+                    ).save(paths["depth"])
+    towers = {"image": languagebind_large("image"),
+              "depth": languagebind_large("depth"), "audio": audio_tower}
+    card = make_media_loaders(towers, device=dev)
+    cpu = make_media_loaders(towers, device="cpu")
+    worst = {}
+    for m, path in paths.items():
+        got, want = card[m](path), cpu[m](path)
+        if not (torch.is_tensor(got) and got.device.type == dev.type
+                and torch.is_tensor(want) and want.device.type == "cpu"):
+            raise AssertionError(f"loader {m}: samples {type(got)} on "
+                                 f"{getattr(got, 'device', None)}, "
+                                 f"{type(want)} on "
+                                 f"{getattr(want, 'device', None)}")
+        torch.testing.assert_close(got.cpu(), want, **(
+            AUDIO_TOL if m == "audio" else DATA_TOL))
+        worst[m] = (got.cpu() - want).abs().max().item()
+    return ("loaders on the card, samples there: "
+            + ", ".join(f"{m} within {e:.2e} of the CPU's"
+                        for m, e in worst.items()))
+
+
+def transform_memory(dev, rng, sizes=64):
+    """image_transform over `sizes` distinct source sizes: the card memory
+    allocated above the start at the peak, and after (none may stay)."""
+    from missm_tpu_torch.ops.image_transforms import image_transform
+
+    shapes = set()
+    while len(shapes) < sizes:
+        shapes.add((int(rng.integers(300, 800)), int(rng.integers(300, 1300))))
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for h, w in sorted(shapes):
+        image_transform(rng.integers(0, 256, (h, w, 3), dtype=np.uint8), 224,
+                        device=dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - start
+    held = torch.cuda.memory_allocated(dev) - start
+    if held:
+        raise AssertionError(f"image_transform holds {held} B of card "
+                             f"memory after {sizes} source sizes")
+    return (f"image_transform over {sizes} distinct source sizes: peak "
+            f"{peak / 2**20:.2f} MiB of card memory above the start, "
+            f"{held} B held after")
+
+
+def data_phase(dev, rng, card, profile):
+    """The data layer on the card: a mvsa-style tree on disk (DATA_SPLITS
+    rows of JPEGs at DATA_SIZES) through the port's testing_loader and
+    production media loaders (PIL decode, image_transform on the card) into
+    run_missing_sweep(concat_mean) of the flagship concat model (bf16
+    encoder), 3 missing types x 10 loaders and the statistics pass; then two
+    train steps of the flagship `sum` model (4 x 16) on training_loader's
+    batches with train-time missing codes. Checks the launches per batch
+    and per step, 30 finite report blocks, finite losses with the watched
+    leaves moved and the frozen ones not, the disk batches against the
+    same loaders built on the CPU, and each transform on the card against
+    the CPU."""
+    import random
+
+    from missm_tpu_torch.data.ingest_io import decode_image
+    from missm_tpu_torch.data.loaders import (_decode_pool, testing_loader,
+                                              training_loader)
+    from missm_tpu_torch.data.preprocess import make_media_loaders
+    from missm_tpu_torch.eval.sweep import run_missing_sweep
+    from missm_tpu_torch.kernels import attention as K
+    from missm_tpu_torch.models import finetune
+    from missm_tpu_torch.train.step import (init_train_state, make_eval_step,
+                                            make_train_step)
+    from missm_tpu_torch.train.trainability import (FROZEN, leaves,
+                                                    param_labels)
+
+    transform_checks(dev, rng, card)
+    paths = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        csv = write_mvsa_tree(root, rng)
+        print(f"data: wrote {sum(DATA_SPLITS.values())} rows {DATA_SPLITS} "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # --- the sweep from disk
+        cfg = flagship_config("bfloat16", fusion_type="concat")
+        params = finetune.init_model_params(cfg, seed=0, device=dev)
+        params = {"encoder": finetune.cast_tree(params["encoder"],
+                                                torch.bfloat16),
+                  "fusion": params["fusion"]}
+        tok = data_tokenizer(cfg)
+        train, test, classes = testing_loader(
+            data_args(), csv, tok, make_media_loaders(cfg.tower_dict,
+                                                      device=dev))
+        if classes != cfg.fusion.output_dims or len(test) != 3:
+            raise AssertionError(f"data: {classes} classes, types {list(test)}")
+        eval_step = make_eval_step(cfg, device=dev)
+        eval_step(params, *next(iter(test["mixed"][0.9])))  # warm-up
+        torch.cuda.synchronize()
+        n_vision, n_text = layers(cfg)
+        with tempfile.TemporaryDirectory() as out:
+            K.reset_launches()
+            t0 = time.perf_counter()
+            results = run_missing_sweep(params, cfg, eval_step, test, out,
+                                        "mvsa", "concat_mean",
+                                        train_loader=train, verbose=False,
+                                        device=dev)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            paths["data sweep"] = launches = dict(K.LAUNCHES)
+            blocks = []
+            for mt in SWEEP_TYPES:
+                with open(os.path.join(out, f"mvsa_concat_mean_{mt}.txt"),
+                          encoding="utf-8") as f:
+                    blocks += [b for b in f.read().split("\n\n") if b]
+        batches = COVERS["data sweep"]
+        want = dict(dict.fromkeys(launches, 0), attention=n_vision * batches,
+                    causal_attention=n_text * batches)
+        numbers = [float(line.rsplit(": ", 1)[1]) for b in blocks
+                   for line in b.splitlines()[2:]]
+        rows = (len(SWEEP_TYPES) * 10 * DATA_SPLITS["test"]
+                + DATA_SPLITS["train"])
+        print(f"data sweep from disk (smoke reading): {len(blocks)} report "
+              f"blocks, {rows} rows ({batches} batches, {DATA_WORKERS} "
+              f"decode threads) in {dt:.4f} s = {rows / dt:.2f} rows/s, "
+              f"{dt / batches * 1e3:.3f} ms a batch; launches {launches}; "
+              "mixed "
+              + "; ".join(f"{r}: acc {m['accuracy']:.4f} auc {m['auc']:.4f}"
+                          for r, m in results["mixed"].items())
+              + f" [{card}]", flush=True)
+        if (launches != want or len(blocks) != len(SWEEP_TYPES) * 10
+                or len(numbers) != 4 * len(blocks)
+                or not all(math.isfinite(x) for x in numbers)):
+            raise AssertionError(f"data sweep: launches {launches} (expected "
+                                 f"{want}), {len(blocks)} blocks, numbers "
+                                 f"{numbers}")
+
+        # --- the loader alone (decode and transforms, no model), then its
+        # batches and the train loader's against the same loaders on the CPU
+        t0 = time.perf_counter()
+        card_mixed = list(test["mixed"][0.5])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        files = test["mixed"][0.5].dataset.data["image"]
+        t0 = time.perf_counter()
+        list(_decode_pool(DATA_WORKERS).map(decode_image, files))
+        dt_decode = time.perf_counter() - t0
+        print(f"data loader alone (smoke readings): {len(files)} rows in "
+              f"{dt:.4f} s = {len(files) / dt:.2f} rows/s; their PIL decode "
+              f"alone on {DATA_WORKERS} threads {dt_decode:.4f} s = "
+              f"{len(files) / dt_decode:.2f} rows/s [{card}]", flush=True)
+        t0 = time.perf_counter()
+        cpu_train, cpu_test, _ = testing_loader(
+            data_args(), csv, tok, make_media_loaders(cfg.tower_dict,
+                                                      device="cpu"))
+        worst = max(same_batches("train", dev, list(train), list(cpu_train)),
+                    same_batches("mixed 0.5", dev, card_mixed,
+                                 list(cpu_test["mixed"][0.5])))
+        print(f"data batches, card vs CPU: {DATA_SPLITS['train']} train + "
+              f"{DATA_SPLITS['test']} test rows equal (ids, masks, labels, "
+              f"codes), images within {worst:.2e} (limit "
+              f"{DATA_TOL['atol']} + {DATA_TOL['rtol']} |ref|), "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        del params, eval_step, train, test, cpu_train, cpu_test, card_mixed
+
+        # --- two train steps on training_loader's batches
+        cfg = flagship_config("bfloat16")
+        params = finetune.init_model_params(cfg, seed=0, device=dev)
+        state, tx = init_train_state(params, cfg)
+        step = make_train_step(cfg, tx, accum_steps=ACCUM, device=dev)
+        random.seed(0)  # the train-time missing codes
+        loader, _, _ = training_loader(
+            data_args(fusion_type="sum", train_missing=True), csv, tok,
+            make_media_loaders(cfg.tower_dict, device=dev))
+        blocks_v = params["encoder"]["image"]["vision"]["blocks"]
+        moving = {"vision block 0 q lora_b": blocks_v[0]["attn"]["q"]
+                  ["lora_b"],
+                  "text block 0 q w": params["encoder"]["language"]["text"]
+                  ["blocks"][0]["attn"]["q"]["w"],
+                  "fusion proj image w": params["fusion"]["proj"]["image"]
+                  ["w"]}
+        before = {k: t.clone() for k, t in moving.items()}
+        frozen = [(t, t.clone()) for t, lab in zip(
+            leaves(params), leaves(param_labels(params, cfg)))
+            if lab == FROZEN]
+        gen = torch.Generator(device=dev).manual_seed(0)
+        K.reset_launches()
+        losses, codes, times = [], [], []
+        t0 = time.perf_counter()
+        for data, labels, missing in loader:
+            state, m = step(state, data, labels, missing, LR, gen)
+            losses.append(m["loss"].item())
+            codes += missing.tolist()
+            times.append(time.perf_counter() - t0)
+        dt = times[-1]
+        paths["data train"] = launches = dict(K.LAUNCHES)
+        steps = COVERS["data train"]
+        want = dict(dict.fromkeys(launches, 0),
+                    attention=n_vision * ACCUM * steps,
+                    attention_bwd=n_vision * ACCUM * steps,
+                    causal_attention=n_text * ACCUM * steps)
+        still = [k for k, t in moving.items() if torch.equal(t, before[k])]
+        moved = sum(not torch.equal(t, t0_) for t, t0_ in frozen)
+        print(f"data train from disk: {len(losses)} steps of B={B} "
+              f"({ACCUM} x {B // ACCUM}) in {dt:.4f} s, each with its "
+              f"batch's decode (the first warms up): "
+              f"{[round(b - a, 4) for a, b in zip([0.0] + times, times)]} "
+              f"s, losses {[round(x, 4) for x in losses]}, codes "
+              f"{sorted(set(codes))}, launches {launches} [{card}]",
+              flush=True)
+        if (launches != want or len(losses) != steps
+                or not all(math.isfinite(x) for x in losses) or still
+                or moved or not set(codes) <= {0, 1, 4}):
+            raise AssertionError(f"data train: launches {launches} (expected "
+                                 f"{want}), losses {losses}, unmoved {still}, "
+                                 f"{moved} frozen leaves moved, codes "
+                                 f"{set(codes)}")
+    return paths
+
+
 def probes_phase(dev):
     """Every probe once, every count from 0 (missm_tpu_torch.probes): the
     ln_linear probe (the 24-layer image stack at B=64, forward and forward
@@ -2165,7 +2584,7 @@ def main() -> int:
     print(f"phase probes: {time.perf_counter() - t0:.1f} s", flush=True)
     # each returns its launch counts by path
     for path, phase in (("heads", heads_phase), ("distill", distill_phase),
-                        ("sweep", sweep_phase)):
+                        ("sweep", sweep_phase), ("data", data_phase)):
         t0 = time.perf_counter()
         paths.update(phase(dev, rng, card, args.profile))
         print(f"phase {path}: {time.perf_counter() - t0:.1f} s", flush=True)

@@ -1268,3 +1268,124 @@ def test_tiny_distill_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
         terms = o.abs() * EMA_DECAY + s.abs() * (1.0 - EMA_DECAY)
         assert ((t - (o * EMA_DECAY + s * (1.0 - EMA_DECAY))).abs()
                 <= 4 * eps * terms).all()
+
+
+# ---------------------------------------------------------------------------
+# The data layer's device transforms: the card against the same call on the
+# CPU (the CPU against JAX: tests/test_torch_transforms.py), at the
+# tolerances tests/test_host_transforms.py holds the JAX package's two
+# transform paths to
+# ---------------------------------------------------------------------------
+
+def test_transforms_on_the_card_match_the_cpu(cuda):
+    from missm_tpu_torch.ops import image_transforms as tit
+    from missm_tpu_torch.ops import melfbank as tmel
+
+    rng = np.random.default_rng(9)
+    img = rng.integers(0, 256, (375, 500, 3), dtype=np.uint8)
+    frames = rng.integers(0, 256, (8, 90, 160, 3), dtype=np.uint8)
+    raw = rng.integers(0, 12000, (120, 160)).astype(np.float32)
+    calls = [lambda d: tit.image_transform(img, 224, device=d),
+             lambda d: tit.video_transform(frames, 224, True, device=d),
+             lambda d: tit.depth_transform(raw, 224, 0.0, device=d),
+             lambda d: tit.depth_transform(raw, 224, 10.0, device=d)]
+    for call in calls:
+        got = call(cuda)
+        assert got.device.type == "cuda" and got.dtype == torch.float32
+        torch.testing.assert_close(got.cpu(), call("cpu"), atol=2e-4,
+                                   rtol=1e-4)
+    cfg = tmel.FbankConfig()
+    for n in (48000, 16000 * 15):
+        wav = rng.standard_normal(n).astype(np.float32)
+        frames_n = tmel.num_frames(n, cfg)
+        idx = ((0, 0, 0) if frames_n <= 1036 else tuple(
+            int(r[-1]) for r in tmel.chunk_ranges(frames_n, 1036)))
+        args = (wav, cfg, 1036, idx, -4.2677393, 4.5689974)
+        got = tmel.audio_model_input(*args, device=cuda)
+        torch.testing.assert_close(
+            got.cpu(), torch.from_numpy(tmel.audio_model_input_host(*args)),
+            atol=2e-3, rtol=1e-4)
+
+
+def test_loader_batches_on_the_card_match_the_cpu(cuda, tmp_path):
+    """A tiny mvsa tree through training_loader with the media loaders on
+    the card and on the CPU: the same batches, the card's images there."""
+    import argparse
+
+    from PIL import Image
+
+    from missm_tpu_torch.data.loaders import training_loader
+    from missm_tpu_torch.data.missing import (generate_missing_index,
+                                              save_missing_index)
+    from missm_tpu_torch.data.preprocess import make_media_loaders
+    from missm_tpu_torch.data.tokenizer import HashTokenizer
+
+    rng = np.random.default_rng(10)
+    (tmp_path / "data").mkdir()
+    with open(tmp_path / "label.csv", "w") as f:
+        f.write("ID,language,annotation,mode\n")
+        for i in range(12):
+            f.write(f"{i},text {i},{['a', 'b'][i % 2]},"
+                    f"{'train' if i < 8 else 'valid'}\n")
+            Image.fromarray(rng.integers(0, 256, (40 + i, 56, 3),
+                                         dtype=np.uint8)).save(
+                tmp_path / "data" / f"{i}.jpg")
+    save_missing_index(str(tmp_path / "missing_index.pkl"),
+                       generate_missing_index(
+                           {"train": 8, "valid": 4, "test": 0},
+                           ["language", "image"]))
+    args = argparse.Namespace(datasetName="mvsa", fusion_type="sum",
+                              train_missing=False, batch_size=3,
+                              num_workers=3)
+    towers = {"image": tiny_tower("image")}
+    batches = {}
+    for dev in (cuda, "cpu"):
+        train, valid, n = training_loader(args, str(tmp_path / "label.csv"),
+                                          HashTokenizer(99, 16),
+                                          make_media_loaders(towers,
+                                                             device=dev))
+        batches[str(dev)] = list(train) + list(valid)
+    assert n == 2 and len(batches["cpu"]) == 5
+    for (gd, gl, gm), (cd, cl, cm) in zip(batches[str(cuda)],
+                                          batches["cpu"]):
+        assert gd["image"].device.type == "cuda"
+        torch.testing.assert_close(gd["image"].cpu(), cd["image"],
+                                   atol=2e-4, rtol=1e-4)
+        np.testing.assert_array_equal(gd["language"]["input_ids"],
+                                      cd["language"]["input_ids"])
+        np.testing.assert_array_equal(gl, cl)
+        np.testing.assert_array_equal(gm, cm)
+
+
+def test_media_loaders_on_the_card_match_the_cpu(cuda, tmp_path):
+    """make_media_loaders built for the card: image, depth and audio
+    samples are tensors there, equal to the CPU-built loaders' within the
+    transforms' limits."""
+    import wave
+
+    from PIL import Image
+
+    from missm_tpu_torch.data.preprocess import make_media_loaders
+
+    rng = np.random.default_rng(12)
+    paths = {"image": str(tmp_path / "i.jpg"), "depth": str(tmp_path / "d.png"),
+             "audio": str(tmp_path / "a.wav")}
+    Image.fromarray(rng.integers(0, 256, (90, 120, 3), dtype=np.uint8)).save(
+        paths["image"])
+    Image.fromarray(rng.integers(0, 12000, (60, 80), dtype=np.uint16)).save(
+        paths["depth"])
+    with wave.open(paths["audio"], "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes((rng.standard_normal(32000) * 4000).astype(
+            "<i2").tobytes())
+    towers = {m: tiny_tower(m) for m in paths}
+    card = make_media_loaders(towers, device=cuda)
+    cpu = make_media_loaders(towers, device="cpu")
+    for m, path in paths.items():
+        got, want = card[m](path), cpu[m](path)
+        assert got.device.type == "cuda" and want.device.type == "cpu"
+        tol = (dict(atol=2e-3, rtol=1e-4) if m == "audio"
+               else dict(atol=2e-4, rtol=1e-4))
+        torch.testing.assert_close(got.cpu(), want, **tol)

@@ -1,6 +1,8 @@
 """The port stands alone: importing it pulls in neither JAX nor the JAX
-package and builds nothing, chip_smoke.py imports neither, and its entry
-points run on the card unless the caller asks for the CPU."""
+package and builds nothing, needs neither pandas nor PIL to import,
+chip_smoke.py imports neither JAX nor the JAX package, and its entry
+points run on the card unless the caller asks for the CPU, the media
+loaders' samples included."""
 import ast
 import os
 import subprocess
@@ -12,8 +14,11 @@ import torch
 
 from missm_tpu_torch.compat.from_jax import from_jax
 from missm_tpu_torch.core.config import tiny_tower
+from missm_tpu_torch.data.preprocess import make_media_loaders
 from missm_tpu_torch.models import finetune
 from missm_tpu_torch.models.fusion import FusionConfig
+from missm_tpu_torch.ops.image_transforms import image_transform
+from missm_tpu_torch.ops.melfbank import FbankConfig, audio_model_input
 from missm_tpu_torch.train.step import (init_train_state, make_eval_step,
                                         make_train_step)
 
@@ -43,6 +48,32 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert int(proc.stdout.strip()) >= 17  # every module was imported
 
 
+_IMPORT_WITHOUT = """
+import importlib, pkgutil, sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("pandas", "PIL"):
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+import missm_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(missm_tpu_torch.__path__,
+                                                "missm_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+assert "missm_tpu_torch.data.loaders" in sys.modules
+print(len(names))
+"""
+
+
+def test_port_imports_without_pandas_or_pil():
+    """The data layer imports pandas and PIL inside the functions that
+    read a CSV or decode an image, never at import time."""
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_WITHOUT], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 17
+
+
 def test_chip_smoke_imports_no_jax_and_no_jax_package():
     tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
     names = set()
@@ -66,7 +97,8 @@ def _cfg():
 
 @pytest.mark.parametrize("entry", ["init_model_params", "make_eval_step",
                                    "make_train_step", "model_forward",
-                                   "from_jax"])
+                                   "from_jax", "make_media_loaders",
+                                   "image_transform", "audio_model_input"])
 def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch,
                                                                 entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -82,6 +114,12 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch,
         "model_forward": lambda: finetune.model_forward(
             params, cfg, data, np.zeros(2, np.int32)),
         "from_jax": lambda: from_jax({"w": np.zeros(3, np.float32)}),
+        "make_media_loaders": lambda: make_media_loaders(cfg.tower_dict),
+        "image_transform": lambda: image_transform(
+            np.zeros((40, 56, 3), np.uint8), 32),
+        "audio_model_input": lambda: audio_model_input(
+            np.zeros(1600, np.float32), FbankConfig(num_mel_bins=32), 48,
+            (0, 0, 0), 0.0, 1.0),
     }
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         calls[entry]()
@@ -89,3 +127,36 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch,
     logits, _ = finetune.model_forward(params, cfg, data,
                                        np.zeros(2, np.int32), device="cpu")
     assert logits.shape == (2, 3) and torch.isfinite(logits).all()
+
+
+@pytest.mark.parametrize("modality", ["image", "depth", "audio"])
+def test_media_loaders_follow_their_device(monkeypatch, tmp_path, modality):
+    """make_media_loaders(device=...)[m](path) gives a tensor on that
+    device, with no host path beside it: built for the card without one it
+    raises; built for the CPU its sample lies on the CPU."""
+    import wave
+
+    from PIL import Image
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.default_rng(0)
+    if modality == "audio":
+        path = str(tmp_path / "a.wav")
+        with wave.open(path, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes((rng.standard_normal(4000) * 3000).astype(
+                "<i2").tobytes())
+    else:
+        path = str(tmp_path / "x.png")
+        Image.fromarray(rng.integers(0, 256, (30, 40, 3), dtype=np.uint8)
+                        if modality == "image" else
+                        rng.integers(0, 9000, (30, 40), dtype=np.uint16)
+                        ).save(path)
+    towers = {modality: tiny_tower(modality)}
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        make_media_loaders(towers)
+    out = make_media_loaders(towers, device="cpu")[modality](path)
+    assert torch.is_tensor(out) and out.device.type == "cpu"
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
