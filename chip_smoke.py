@@ -143,7 +143,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 that image_transform over 64 distinct source sizes holds no
                 card memory after; prints the card ms a sample of each
                 transform and that run's peak memory.
- 14. summary  - a `{"kernels": [...]}` line, the card's name and power limit,
+ 14. cli      - the entry points (missm_tpu_torch.cli) in a temporary working
+                directory on the data phase's mvsa tree, written anew:
+                cli.train at the flagship's full width (seeded random init,
+                bf16 encoder, the CLI's default remat, B=16, 2 epochs, a
+                resume checkpoint every epoch) checks two finite epochs,
+                best_model, last (loop epoch 1) and final_model/mvsa_sum,
+                the final model's frozen leaves equal to a fresh init's bit
+                for bit and its watched LoRA and fusion leaves moved, and
+                K1 48, K3 24, K2(a) 24 a train step (each block's forward
+                recomputed in the backward, every train-step K1 writing the
+                log-sum-exp) and K1 24, K2(a) 12 a val batch; the same
+                command resumed to 3 epochs continues at epoch 3 with the
+                first run's history; a cli.train subprocess (--frozen_bf16,
+                --profile_dir) exits 75 on a SIGTERM after its first epoch,
+                leaving a `last` that says `preempted` and a Chrome trace
+                that holds device kernels, and its --resume auto exits 0;
+                cli.test (sum, 3 missing types x 10 loaders of 64 + 64 +
+                8 rows) writes 30 finite report blocks in the reference's
+                format, K1 24 and K2(a) 12 a batch; cli.predict writes 136
+                rows in range, and Predictor.from_checkpoint equals
+                model_forward on the restored params; the converter
+                (init_params --init checkpoint on tests/fixtures/lb_ckpt,
+                f32, TF32 off) reproduces the reference towers' features
+                within 5e-5 + 2e-4 |ref|. Prints each epoch's samples/s and
+                duty, each checkpoint write's seconds and size and the
+                sweep's rows/s.
+ 15. summary  - a `{"kernels": [...]}` line, the card's name and power limit,
                 and as the last line {"ok": true, "device": {...}}.
 --profile adds one torch.profiler-traced step of each of eval, train, eval3,
 train3, ln2fc1 eval and ln2fc1 train and prints device time by kernel.
@@ -157,6 +183,7 @@ import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -227,6 +254,21 @@ COVERS = {"distill KL_stu": 1, "distill self_distill": 1,
           "data sweep": (len(SWEEP_TYPES) * 10 * -(-DATA_SPLITS["test"] // B)
                          + DATA_SPLITS["train"] // B),
           "data train": DATA_SPLITS["train"] // B}
+# cli: the entry points at the flagship's full width, B=16 (8 train steps
+# and 4 val batches an epoch on DATA_SPLITS); the converter on the committed
+# fixtures against the reference towers' features at
+# tests/test_checkpoint_fixture.py:61's tolerances
+CLI_SCALE = "large"
+CLI_BATCH = 16
+CLI_CHILD_TIMEOUT = 600                 # s, each cli.train subprocess
+CONVERT_TOL = dict(atol=5e-5, rtol=2e-4)
+COVERS.update({
+    "cli train": 2 * (DATA_SPLITS["train"] // CLI_BATCH
+                      + DATA_SPLITS["valid"] // CLI_BATCH),
+    "cli resume": (DATA_SPLITS["train"] // CLI_BATCH
+                   + DATA_SPLITS["valid"] // CLI_BATCH),
+    "cli test": 30 * -(-DATA_SPLITS["test"] // 64),
+    "cli predict": -(-DATA_SPLITS["test"] // 64)})
 RATES = {}                              # samples/s by timed_train's name
 
 
@@ -2389,6 +2431,445 @@ def data_phase(dev, rng, card, profile):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# cli: the entry points on a dataset on disk
+# ---------------------------------------------------------------------------
+
+class _Tee:
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, s):
+        self.lines.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.lines)
+
+
+@contextlib.contextmanager
+def captured():
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        yield tee
+
+
+@contextlib.contextmanager
+def checkpoint_writes(log):
+    """Every checkpoint write (train/checkpoint.py::_write, on the writer
+    thread) timed, appended to `log` as (name, seconds, bytes)."""
+    from missm_tpu_torch.train import checkpoint as ck
+
+    real = ck._write
+
+    def timed(path, host_tree, metadata):
+        t0 = time.perf_counter()
+        real(path, host_tree, metadata)
+        log.append((os.path.basename(path), time.perf_counter() - t0,
+                    os.path.getsize(os.path.join(path, ck.TREE_FILE))))
+    ck._write = timed
+    try:
+        yield log
+    finally:
+        ck._write = real
+
+
+@contextlib.contextmanager
+def lse_launches(counts):
+    """Counts the attention forward launches that write the log-sum-exp
+    (kernels/attention.py::_launch with want_lse) in counts["lse"]."""
+    from missm_tpu_torch.kernels import attention as K
+
+    real = K._launch
+
+    def launch(*a, **kw):
+        if kw.get("want_lse"):
+            counts["lse"] += 1
+        return real(*a, **kw)
+    K._launch = launch
+    try:
+        yield counts
+    finally:
+        K._launch = real
+
+
+def cli_argv(csv, dev, *extra):
+    return ["--datasetName", "mvsa", "--csv_path", csv, "--model_scale",
+            CLI_SCALE, "--hash_tokenizer", "--fusion_type", "sum",
+            "--modality_types", "language", "image", "--device", dev.type,
+            *extra]
+
+
+def cli_train_expect(n_vision, n_text, steps, val_batches):
+    """The launches of `steps` train steps under the CLI's default remat
+    (each block's forward runs twice: once, recorded, in the forward, and
+    again in the backward's recompute, whose log-sum-exp the backward
+    kernel reads) and of `val_batches` eval batches."""
+    return {"attention": n_vision * (2 * steps + val_batches),
+            "attention_bwd": n_vision * steps,
+            "causal_attention": n_text * (2 * steps + val_batches)}
+
+
+def check_launches(name, launches, want, lse=None, lse_want=None):
+    want = dict(dict.fromkeys(launches, 0), **want)
+    if launches != want or lse != lse_want:
+        raise AssertionError(f"{name}: launches {launches} (expected {want}),"
+                             f" log-sum-exp writes {lse} (expected "
+                             f"{lse_want})")
+
+
+def train_report(name, hist, writes, card):
+    for h in hist:
+        rate = h["n_batches"] * CLI_BATCH / (h["input_s"] + h["step_s"])
+        print(f"{name} epoch {h['epoch'] + 1} (smoke reading): {h['n_batches']}"
+              f" steps of B={CLI_BATCH} in {h['input_s'] + h['step_s']:.4f} s"
+              f" = {rate:.2f} samples/s, duty {h['duty']:.3f}, a step alone "
+              f"{h['step_ms']:.3f} ms, train loss {h['train_loss']:.4f}, val "
+              f"loss {h['val_loss']:.4f} acc {h['val_accuracy']:.4f} "
+              f"[{card}]", flush=True)
+    print(f"{name} checkpoint writes (smoke readings): "
+          + "; ".join(f"{p} {s:.3f} s {b / 2**30:.3f} GiB "
+                      f"({b / 2**30 / s:.3f} GiB/s)" for p, s, b in writes)
+          + f" [{card}]", flush=True)
+
+
+def cli_preemption(dev, root, csv, card):
+    """cli.train in a subprocess (--frozen_bf16, its own directory and
+    --save_path, --profile_dir), SIGTERM after its first "Epoch 1/" line:
+    exit 75, a `last` whose metadata holds `preempted` and a Chrome trace
+    holding device kernels; then --resume auto: exit 0."""
+    import signal
+    import threading
+
+    from missm_tpu_torch.train.checkpoint import read_metadata
+
+    run = os.path.join(root, "preempt")
+    os.makedirs(run)
+    trace = os.path.join(run, "trace", "train_trace.json")
+    argv = cli_argv(csv, dev, "--init", "random", "--batch_size",
+                    str(CLI_BATCH), "--num_epochs", "2", "--seed", "0",
+                    "--frozen_bf16", "--save_path", "preempt_ckpt")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=os.pathsep.join(
+        [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    codes, outs = [], []
+    # the first run also traces epoch-0 batches 4-6 (--profile_dir)
+    for extra in (["--profile_dir", os.path.dirname(trace)],
+                  ["--resume", "auto"]):
+        first = extra[0] == "--profile_dir"
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "missm_tpu_torch.cli.train", *argv,
+             *extra], cwd=run, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        watchdog = threading.Timer(CLI_CHILD_TIMEOUT, proc.kill)
+        watchdog.start()
+        lines, signalled = [], None
+        try:
+            for line in proc.stdout:
+                lines.append(line)
+                if first and signalled is None and line.startswith(
+                        "Epoch 1/"):
+                    proc.send_signal(signal.SIGTERM)
+                    signalled = time.perf_counter() - t0
+            proc.wait()
+        finally:
+            watchdog.cancel()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            proc.stdout.close()
+        codes.append(proc.returncode)
+        outs.append("".join(lines))
+        print(f"cli preemption {'run' if first else 'resume'}: exit "
+              f"{proc.returncode} after {time.perf_counter() - t0:.1f} s"
+              + (f", SIGTERM at {signalled:.1f} s" if signalled else ""),
+              flush=True)
+        if first:
+            meta = read_metadata(os.path.join(
+                run, "experiments", "mvsa_sum", "preempt_ckpt", "last"))
+            print(f"cli preemption: last holds loop epoch "
+                  f"{(meta or {}).get('loop', {}).get('epoch')}, preempted "
+                  f"{(meta or {}).get('preempted')}", flush=True)
+    events, kernels = [], 0
+    if os.path.exists(trace):
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = sum(e.get("cat") == "kernel" for e in events)
+        print(f"cli --profile_dir: a Chrome trace of {len(events)} events, "
+              f"{kernels} of them device kernels, "
+              f"{os.path.getsize(trace) / 2**20:.1f} MiB", flush=True)
+    traced = kernels if dev.type == "cuda" else len(events)
+    if codes != [75, 0] or not (meta and "preempted" in meta) or \
+            "continuing at epoch 2" not in outs[1] or not traced:
+        raise AssertionError(f"cli preemption: exit codes {codes} (expected "
+                             f"[75, 0]), metadata {meta}, {kernels} kernels "
+                             "traced; output:\n"
+                             + "\n---\n".join(o[-3000:] for o in outs))
+
+
+def cli_converter(dev, card):
+    """cli.common.init_params --init checkpoint on the committed fixture
+    checkpoints (tests/fixtures/lb_ckpt, five tiny towers) on the card, f32
+    with TF32 off: each tower's vision features and the language alias's
+    text features against the reference towers' (expected.npz) at
+    tests/test_checkpoint_fixture.py's tolerances."""
+    from missm_tpu_torch.cli.common import build_model_config, init_params
+    from missm_tpu_torch.models.tower import text_features, vision_features
+
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "fixtures", "lb_ckpt")
+    mods = ["image", "video", "audio", "depth", "thermal"]
+    args = argparse.Namespace(
+        modality_types=["language", *mods], model_scale="tiny",
+        init="checkpoint", checkpoint_dir=fix, fusion_type="sum",
+        feature_dims=24, fusion_dim=8, dropout_prob=0.1, bf16=False,
+        remat=False, device=dev.type)
+    exp = dict(np.load(os.path.join(fix, "expected.npz")))
+    cfg = build_model_config(args, 3)
+    errs = {}
+    with no_tf32(), torch.no_grad():
+        params = init_params(args, cfg, 0)
+        for m in mods:
+            tp = params["encoder"][m]
+            got = vision_features(tp["vision"], cfg.tower_dict[m].vision,
+                                  torch.as_tensor(exp[m], device=dev),
+                                  projection=tp["proj"]).cpu().numpy()
+            np.testing.assert_allclose(got, exp[f"{m}_features"],
+                                       **CONVERT_TOL)
+            errs[m] = float(np.abs(got - exp[f"{m}_features"]).max())
+        lp = params["encoder"]["language"]
+        _, got = text_features(lp["text"], cfg.tower_dict["thermal"].text,
+                               torch.as_tensor(exp["ids"], device=dev),
+                               projection=lp["proj"])
+        got = got.cpu().numpy()
+        np.testing.assert_allclose(got, exp["thermal_text_features"],
+                                   **CONVERT_TOL)
+        errs["text (thermal's)"] = float(
+            np.abs(got - exp["thermal_text_features"]).max())
+    print(f"cli converter: {len(mods)} fixture towers converted on the card, "
+          "features against the reference's within "
+          + ", ".join(f"{m} {e:.2e}" for m, e in errs.items())
+          + f" (limit {CONVERT_TOL}) [{card}]", flush=True)
+
+
+def cli_phase(dev, rng, card, profile):
+    """The entry points on the card (missm_tpu_torch.cli), from the data
+    phase's mvsa tree written anew to a temporary directory that is the
+    working directory meanwhile: cli.train (flagship at full width, seeded
+    random init, bf16 encoder, default remat, B=16, 2 epochs, a resume
+    checkpoint every epoch), the same command resumed to 3 epochs, a
+    SIGTERM'd subprocess and its --resume auto, cli.test (sum, 3 missing
+    types x 10 loaders), cli.predict, and the converter on the fixtures.
+    Returns the launch counts of the train, resume, test and predict
+    runs."""
+    from missm_tpu_torch.cli import predict as cli_predict
+    from missm_tpu_torch.cli import test as cli_test
+    from missm_tpu_torch.cli import train as cli_train
+    from missm_tpu_torch.cli.common import build_model_config, init_params
+    from missm_tpu_torch.compat.args import train_args
+    from missm_tpu_torch.eval.predictor import Predictor
+    from missm_tpu_torch.kernels import attention as K
+    from missm_tpu_torch.models import finetune
+    from missm_tpu_torch.train.checkpoint import (read_metadata,
+                                                  restore_checkpoint)
+    from missm_tpu_torch.train.trainability import (FROZEN, leaves,
+                                                    param_labels)
+
+    paths = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        csv = write_mvsa_tree(os.path.join(root, "mvsa"), rng)
+        run = os.path.join(root, "run")
+        os.makedirs(run)
+        os.chdir(run)
+        try:
+            # --- train, 2 epochs
+            argv = cli_argv(csv, dev, "--init", "random", "--batch_size",
+                            str(CLI_BATCH), "--num_epochs", "2",
+                            "--checkpoint_every", "1", "--seed", "0")
+            args = train_args(argv)
+            cfg = build_model_config(args, 10)
+            n_vision, n_text = layers(cfg)
+            steps = DATA_SPLITS["train"] // CLI_BATCH
+            val = DATA_SPLITS["valid"] // CLI_BATCH
+            writes, lse = [], {"lse": 0}
+            K.reset_launches()
+            t0 = time.perf_counter()
+            with checkpoint_writes(writes), lse_launches(lse):
+                best, hist = cli_train.main(argv)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            paths["cli train"] = launches = dict(K.LAUNCHES)
+            check_launches("cli train", launches, cli_train_expect(
+                n_vision, n_text, 2 * steps, 2 * val), lse["lse"],
+                n_vision * 2 * 2 * steps)
+            print(f"cli train: {len(hist)} epochs in {dt:.1f} s; launches "
+                  f"{launches} = {2 * steps} steps x (K1 {2 * n_vision}, K3 "
+                  f"{n_vision}, K2(a) {2 * n_text}) + {2 * val} val batches "
+                  f"x (K1 {n_vision}, K2(a) {n_text}); {lse['lse']} K1 "
+                  f"launches wrote the log-sum-exp (every train-step K1, "
+                  f"recompute included)", flush=True)
+            train_report("cli train", hist, writes, card)
+            ckpt = os.path.join("experiments", "mvsa_sum", "checkpoints")
+            final = os.path.join("final_model", "mvsa_sum")
+            metrics = [h[k] for h in hist for k in (
+                "train_loss", "val_loss", "val_accuracy", "val_f1",
+                "val_auc")]
+            last = read_metadata(os.path.join(ckpt, "last"))
+            if not (len(hist) == 2 and all(math.isfinite(x) for x in metrics)
+                    and os.path.isdir(os.path.join(ckpt, "best_model"))
+                    and last and last["loop"]["epoch"] == 1
+                    and os.path.isdir(final)):
+                raise AssertionError(f"cli train: history {hist}, "
+                                     f"{os.listdir(ckpt)}, last {last}")
+            # the final model: frozen leaves those of a fresh init at the
+            # seed, bit for bit; the watched trainable leaves moved
+            tree, meta = restore_checkpoint(final)
+            fresh = init_params(args, cfg, 0)
+            labels = leaves(param_labels(fresh, cfg))
+            got, want = leaves(tree["params"]), leaves(fresh)
+            frozen_moved = sum(
+                not torch.equal(g, w.cpu()) for g, w, lab in
+                zip(got, want, labels) if lab == FROZEN)
+            n_frozen = sum(lab == FROZEN for lab in labels)
+            watched = {
+                "vision block 0 q lora_b": lambda p: p["encoder"]["image"]
+                ["vision"]["blocks"][0]["attn"]["q"]["lora_b"],
+                "vision last block v lora_a": lambda p: p["encoder"]["image"]
+                ["vision"]["blocks"][-1]["attn"]["v"]["lora_a"],
+                "fusion proj image w": lambda p: p["fusion"]["proj"]["image"]
+                ["w"]}
+            still = [k for k, f in watched.items()
+                     if torch.equal(f(tree["params"]), f(fresh).cpu())]
+            print(f"cli final model (best epoch {meta['best_epoch']}): "
+                  f"{n_frozen} frozen leaves equal a fresh init's, "
+                  f"{frozen_moved} differ; watched trainable leaves moved: "
+                  f"{[k for k in watched if k not in still]}", flush=True)
+            if frozen_moved or still or len(got) != len(want):
+                raise AssertionError(f"cli final model: {frozen_moved} frozen "
+                                     f"leaves differ, unmoved {still}")
+            del fresh, tree, best
+
+            # --- the same command resumed to 3 epochs
+            argv3 = [a if a != "2" or argv[i - 1] != "--num_epochs" else "3"
+                     for i, a in enumerate(argv)] + ["--resume", "auto"]
+            K.reset_launches()
+            writes, lse = [], {"lse": 0}
+            with captured() as out, checkpoint_writes(writes), \
+                    lse_launches(lse):
+                _, hist3 = cli_train.main(argv3)
+            paths["cli resume"] = launches = dict(K.LAUNCHES)
+            check_launches("cli resume", launches, cli_train_expect(
+                n_vision, n_text, steps, val), lse["lse"],
+                n_vision * 2 * steps)
+            train_report("cli resume", hist3[2:], writes, card)
+            if not ("continuing at epoch 3" in out.text()
+                    and len(hist3) == 3 and hist3[:2] == hist
+                    and math.isfinite(hist3[2]["train_loss"])):
+                raise AssertionError(f"cli resume: history {hist3} against "
+                                     f"{hist}")
+            print(f"cli resume: continued at epoch 3, history[:2] equal to "
+                  f"the first run's; launches {launches}", flush=True)
+
+            # --- SIGTERM in a subprocess, then --resume auto
+            torch.cuda.empty_cache()
+            cli_preemption(dev, root, csv, card)
+
+            # --- the sweep
+            targv = cli_argv(csv, dev, "--test_types", "sum",
+                             "--test_missing_type", "language", "image",
+                             "mixed", "--batch_size", "64")
+            K.reset_launches()
+            t0 = time.perf_counter()
+            results = cli_test.main(targv)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            paths["cli test"] = launches = dict(K.LAUNCHES)
+            batches = 30 * -(-DATA_SPLITS["test"] // 64)
+            check_launches("cli test", launches, {
+                "attention": n_vision * batches,
+                "causal_attention": n_text * batches})
+            pat = re.compile(
+                r"Testing with missing ratio: [\d.]+\nTest Results:\n"
+                r"Test Loss: -?\d+\.\d{4}\nTest Accuracy: \d+\.\d{4}\n"
+                r"Test F1 Score: \d+\.\d{4}\nTest AUC: \d+\.\d{4}")
+            blocks = []
+            for mt in SWEEP_TYPES:
+                with open(os.path.join("new_txt_experiment",
+                                       f"mvsa_sum_{mt}.txt")) as f:
+                    blocks += [b for b in f.read().split("\n\n") if b]
+            numbers = [float(line.rsplit(": ", 1)[1]) for b in blocks
+                       for line in b.splitlines()[2:]]
+            rows = 30 * DATA_SPLITS["test"]
+            print(f"cli test (smoke reading): {len(blocks)} report blocks, "
+                  f"{rows} rows ({batches} batches) in {dt:.4f} s = "
+                  f"{rows / dt:.2f} rows/s, the process's setup and the "
+                  f"checkpoint load included; launches {launches}; mixed "
+                  + "; ".join(f"{r}: acc {m['accuracy']:.4f}"
+                              for r, m in results["sum"]["mixed"].items())
+                  + f" [{card}]", flush=True)
+            if (len(blocks) != 30 or not all(pat.fullmatch(b.strip())
+                                             for b in blocks)
+                    or not all(math.isfinite(x) for x in numbers)):
+                raise AssertionError(f"cli test: {len(blocks)} blocks: "
+                                     f"{blocks}")
+
+            # --- predictions
+            pargv = cli_argv(csv, dev, "--batch_size", "64", "--split",
+                             "test", "--output", "predictions.csv")
+            K.reset_launches()
+            t0 = time.perf_counter()
+            out = cli_predict.main(pargv)
+            dt = time.perf_counter() - t0
+            paths["cli predict"] = launches = dict(K.LAUNCHES)
+            pbatches = -(-DATA_SPLITS["test"] // 64)
+            check_launches("cli predict", launches, {
+                "attention": n_vision * pbatches,
+                "causal_attention": n_text * pbatches})
+            pcfg = build_model_config(train_args(argv), 10)
+            pred = Predictor.from_checkpoint(final, pcfg, batch_size=8,
+                                             device=dev)
+            tree, _ = restore_checkpoint(final)
+            ids, mask = text_batch(rng, 8, vary_length=True)
+            data = {"language": {"input_ids": ids, "attention_mask": mask},
+                    "image": rng.standard_normal(
+                        (8, 3, *pcfg.towers[0][1].vision.image_size)
+                    ).astype(np.float32)}
+            codes = np.array([0, 1, 4, 0, 1, 4, 0, 0])
+            preds, probs = pred.predict_arrays(data, codes)
+            with torch.inference_mode():
+                logits, _ = finetune.model_forward(
+                    {k: finetune.tree_map(lambda t: t.to(dev), v)
+                     for k, v in tree["params"].items()}, pcfg, data, codes,
+                    device=dev)
+            same = (np.array_equal(preds, logits.argmax(-1).cpu().numpy())
+                    and np.array_equal(probs, torch.softmax(
+                        logits, -1).float().cpu().numpy()))
+            print(f"cli predict: {len(out)} rows in {dt:.2f} s, labels "
+                  f"{sorted(set(out['label']))}, preds in "
+                  f"[{out['pred'].min()}, {out['pred'].max()}], launches "
+                  f"{launches}; Predictor.from_checkpoint "
+                  f"{'equals' if same else 'differs from'} model_forward on "
+                  f"the restored params, probs sum to 1 within "
+                  f"{np.abs(probs.sum(-1) - 1).max():.1e}", flush=True)
+            if not (len(out) == DATA_SPLITS["test"] and same
+                    and out["pred"].between(0, 9).all()
+                    and out["label"].between(0, 9).all()
+                    and np.abs(probs.sum(-1) - 1).max() <= 1e-5):
+                raise AssertionError("cli predict: rows, labels or the "
+                                     "from_checkpoint forward")
+        finally:
+            os.chdir(cwd)
+    cli_converter(dev, card)
+    return paths
+
+
 def probes_phase(dev):
     """Every probe once, every count from 0 (missm_tpu_torch.probes): the
     ln_linear probe (the 24-layer image stack at B=64, forward and forward
@@ -2584,7 +3065,8 @@ def main() -> int:
     print(f"phase probes: {time.perf_counter() - t0:.1f} s", flush=True)
     # each returns its launch counts by path
     for path, phase in (("heads", heads_phase), ("distill", distill_phase),
-                        ("sweep", sweep_phase), ("data", data_phase)):
+                        ("sweep", sweep_phase), ("data", data_phase),
+                        ("cli", cli_phase)):
         t0 = time.perf_counter()
         paths.update(phase(dev, rng, card, args.profile))
         print(f"phase {path}: {time.perf_counter() - t0:.1f} s", flush=True)

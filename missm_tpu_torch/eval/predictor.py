@@ -4,7 +4,8 @@
 the device, moved there once, and serves batched predictions (labels and
 probabilities) for raw samples or for arrays. Partial batches are padded
 to the predictor's batch size, so every forward has one shape. The
-tokenizer and the media loaders are injected by the caller.
+tokenizer and the media loaders are injected by the caller;
+`from_checkpoint` restores the params of a train_loop checkpoint.
 """
 from __future__ import annotations
 
@@ -32,9 +33,11 @@ class Predictor:
 
     @classmethod
     def from_checkpoint(cls, path: str, cfg: ModelConfig, **kw):
-        raise NotImplementedError(
-            "checkpoints are not ported yet (ROADMAP queue 1 item 5): build "
-            "the Predictor from params")
+        """A Predictor over the params of a checkpoint at `path` (the final
+        model train_loop writes, or its best_model), moved to `device`."""
+        from ..train.checkpoint import restore_checkpoint
+        tree, _ = restore_checkpoint(path)
+        return cls(tree["params"], cfg, **kw)
 
     @torch.inference_mode()
     def _predict(self, data, missing_index):
@@ -50,8 +53,10 @@ class Predictor:
             if m == "language":
                 data[m] = self.tokenizer(list(col))
             else:
-                data[m] = np.stack([np.asarray(self.media_loaders[m](x))
-                                    for x in col])
+                items = [self.media_loaders[m](x) for x in col]
+                # the data layer's loaders give tensors on their device
+                data[m] = (torch.stack(items) if torch.is_tensor(items[0])
+                           else np.stack([np.asarray(x) for x in items]))
         return data
 
     def predict_arrays(self, data: Mapping, missing_index=None):
@@ -68,8 +73,9 @@ class Predictor:
                 f"batch_size is {target}; use predict() (which chunks) or "
                 f"construct the Predictor with a larger batch_size")
 
-        data = _pad_batch({k: v if isinstance(v, Mapping) else np.asarray(v)
-                           for k, v in data.items()}, target)
+        data = _pad_batch({k: v if isinstance(v, Mapping) or torch.is_tensor(v)
+                           else np.asarray(v) for k, v in data.items()},
+                          target)
         if missing_index is None:
             missing_index = np.zeros((target,), np.int32)
         else:

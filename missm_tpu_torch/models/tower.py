@@ -6,8 +6,10 @@ per-layer dicts walked by a Python loop where JAX stacks them [L, ...] for
 `lax.scan`. Ported: the text tower, and the vision tower on 4-D image input
 and on 5-D video input [B, C, T, H, W] with the temporal blocks (temporal
 embedding, temporal attention, optional temporal MLP), forward and backward,
-with full per-block remat. Tube-3D embedding, 7-D input, patch dropout and
-the named remat policies raise NotImplementedError. With
+with full per-block remat, and the contrastive dual-tower forward. Tube-3D
+embedding, 7-D input, patch dropout and the named remat policies raise
+NotImplementedError. `inject_lora` adds fresh LoRA to converted checkpoint
+blocks (compat/convert.py). With
 kernels.ln_linear.FUSE_LN2_FC1 on (off by default, as in the JAX package),
 each block's ln2 -> fc1 goes through the fused kernel wherever its shape
 rule admits it.
@@ -24,7 +26,7 @@ from torch.utils.checkpoint import checkpoint
 from ..core.config import TextConfig, TowerConfig, VisionConfig
 from ..kernels import ln_linear as _lnl
 from ..ops.attention import multi_head_attention, short_attention
-from ..ops.basic import get_activation, layer_norm, linear
+from ..ops.basic import get_activation, l2_normalize, layer_norm, linear
 
 # ---------------------------------------------------------------------------
 # Initialization (the JAX package's distributions, drawn from a Generator)
@@ -139,6 +141,39 @@ def init_vision_params(gen: torch.Generator, cfg: VisionConfig):
                    for _ in range(cfg.num_layers)],
         "post_ln": _init_ln(d, gen.device),
     }
+
+
+def inject_lora(gen: torch.Generator, vision_params, cfg: VisionConfig):
+    """Fresh LoRA A/B params on converted (checkpoint) vision blocks, drawn
+    from `gen` on its device (missm_tpu/models/tower.py::inject_lora): the
+    reference applies `convert_to_lora` after loading pretrained weights
+    (image/modeling_image.py:772), so published checkpoints carry no LoRA.
+
+    Targets mirror peft's: the temporal attention and the temporal MLP when
+    add_time_attn, else the spatial q/k/v/out projections (ref :775-783).
+    Each block gets its own A/B pair, drawn target by target and block by
+    block within a target; a target that already has LoRA keeps it. B
+    starts at zero, so the adapted blocks compute what the converted ones
+    did. Returns new dicts down to the changed leaves; the tensors are
+    shared with `vision_params`."""
+    if cfg.lora_r == 0:
+        return vision_params
+    d, d_ff = cfg.hidden_size, cfg.intermediate_size
+    blocks = [dict(b) for b in vision_params["blocks"]]
+    if cfg.add_time_attn:
+        targets = [("tattn", n, d, d) for n in ("q", "k", "v", "out")]
+        if "tmlp" in blocks[0]:
+            targets += [("tmlp", "fc1", d, d_ff), ("tmlp", "fc2", d_ff, d)]
+    else:
+        targets = [("attn", n, d, d) for n in ("q", "k", "v", "out")]
+    for mod, leaf, d_in, d_out in targets:
+        for b in blocks:
+            b[mod] = dict(b[mod])
+            inner = dict(b[mod][leaf])
+            if "lora_a" not in inner:
+                inner.update(_init_lora(gen, d_in, d_out, cfg.lora_r))
+            b[mod][leaf] = inner
+    return dict(vision_params, blocks=blocks)
 
 
 def init_tower_params(gen: torch.Generator, cfg: TowerConfig):
@@ -298,3 +333,22 @@ def vision_features(params, cfg: VisionConfig, pixel_values, *, train=False,
     if projection is not None:
         pooled = linear(projection, pooled)
     return pooled
+
+
+def tower_forward(params, cfg: TowerConfig, input_ids, pixel_values, *,
+                  train=False, remat=False):
+    """The contrastive dual-tower forward: (logits_per_image,
+    logits_per_text, text_embeds, image_embeds) as in reference
+    image/modeling_image.py:941-1030 (missm_tpu/models/tower.py::
+    tower_forward). The JAX function's `rng` feeds patch dropout only,
+    which is not ported (vision_features raises on it)."""
+    _, text_pooled = text_features(params["text"], cfg.text, input_ids,
+                                   remat=remat,
+                                   projection=params["text_projection"])
+    image_pooled = vision_features(params["vision"], cfg.vision, pixel_values,
+                                   train=train, remat=remat,
+                                   projection=params["visual_projection"])
+    te = l2_normalize(text_pooled)
+    ie = l2_normalize(image_pooled)
+    logits_per_text = te @ ie.T * torch.exp(params["logit_scale"])
+    return logits_per_text.T, logits_per_text, te, ie

@@ -1,5 +1,6 @@
 """The port stands alone: importing it pulls in neither JAX nor the JAX
-package and builds nothing, needs neither pandas nor PIL to import,
+package and builds nothing, needs neither pandas nor PIL (nor PyYAML,
+safetensors or tensorboard) to import,
 chip_smoke.py imports neither JAX nor the JAX package, and its entry
 points run on the card unless the caller asks for the CPU, the media
 loaders' samples included."""
@@ -52,7 +53,8 @@ _IMPORT_WITHOUT = """
 import importlib, pkgutil, sys
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("pandas", "PIL"):
+        if name.split(".")[0] in ("pandas", "PIL", "yaml", "safetensors",
+                                  "tensorboard"):
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 import missm_tpu_torch
@@ -61,13 +63,17 @@ names = [m.name for m in pkgutil.walk_packages(missm_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 assert "missm_tpu_torch.data.loaders" in sys.modules
+assert "missm_tpu_torch.cli.train" in sys.modules
 print(len(names))
 """
 
 
 def test_port_imports_without_pandas_or_pil():
     """The data layer imports pandas and PIL inside the functions that
-    read a CSV or decode an image, never at import time."""
+    read a CSV or decode an image, and the entry points PyYAML,
+    safetensors and tensorboard inside the functions that read a config,
+    load a safetensors checkpoint or open a writer, never at import
+    time."""
     proc = subprocess.run([sys.executable, "-c", _IMPORT_WITHOUT], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr

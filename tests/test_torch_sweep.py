@@ -325,16 +325,27 @@ def test_predict_raw_samples_matches_jax(model):
     np.testing.assert_allclose(got[1], want[1], rtol=0, atol=PROB_ATOL)
 
 
-def test_predictor_moves_params_once_and_refuses_what_it_cannot_take(model):
+def test_predictor_moves_params_once_and_refuses_what_it_cannot_take(
+        model, tmp_path):
+    """Also the from_checkpoint round trip (missm_tpu/eval/predictor.py:46):
+    a Predictor restored from a port checkpoint predicts what one built
+    from the same params does, exactly."""
+    from missm_tpu_torch.train.checkpoint import save_checkpoint
+
     _, tcfg, tree, _, _ = model
-    p = tpredictor.Predictor(from_jax(tree, device="cpu"), tcfg,
-                             batch_size=2, device="cpu")
+    params = from_jax(tree, device="cpu")
+    p = tpredictor.Predictor(params, tcfg, batch_size=2, device="cpu")
     assert p.params["fusion"]["proj"]["image"]["w"].device.type == "cpu"
     data, _, _ = _arrays(5, 0)
     with pytest.raises(ValueError, match="compiled batch_size"):
         p.predict_arrays(data)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tpredictor.Predictor.from_checkpoint("ckpt", tcfg)
+    path = str(tmp_path / "final")
+    save_checkpoint(path, {"params": params}, metadata={"best_epoch": 0})
+    q = tpredictor.Predictor.from_checkpoint(path, tcfg, batch_size=8,
+                                             device="cpu")
+    ref = tpredictor.Predictor(params, tcfg, batch_size=8, device="cpu")
+    for a, b in zip(q.predict_arrays(data), ref.predict_arrays(data)):
+        np.testing.assert_array_equal(a, b)
 
 
 # ---------------------------------------------------------------------------
