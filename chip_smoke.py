@@ -169,8 +169,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 within 5e-5 + 2e-4 |ref|. Prints each epoch's samples/s and
                 duty, each checkpoint write's seconds and size and the
                 sweep's rows/s.
- 15. summary  - a `{"kernels": [...]}` line, the card's name and power limit,
+ 15. remat    - the named remat policies (models/tower.py::REMAT_POLICIES):
+                the flagship train step (4 x 16) under bench.py's
+                save_attn_mlp_qkv_kern, K1 96 (every one writing the
+                log-sum-exp), K3 96, K2(a) 48 a step (the no-remat counts:
+                no forward kernel again in the backward), and under full
+                remat (192 / 96 / 96), samples/s and peak memory; each of
+                the nine policies once on a 16-row microbatch, f32 with
+                TF32 off, its gradients within 1e-5 relative of no remat's,
+                its exact launches and peak; train3 (B=8) under bench.py's
+                per-tower spec (video save_attn_mlp_qkv, audio
+                save_attn_mlp_kern, language save_attn_mlp), samples/s and
+                peak; cli.train --remat save_attn_mlp_qkv_kern for an epoch
+                on a mvsa tree (K1 24, K3 24, K2(a) 12 a step).
+ 16. export   - serving artifacts (eval/artifact.py, torch.export): the
+                flagship exported on the card at B=64 (seconds, model.pt2
+                bytes), loaded in a fresh subprocess, predict_arrays
+                against the Predictor (preds equal, probs within 1e-6) for
+                each code set and a partial batch, K1 24 and K2(a) 12 a
+                batch from the artifact, rows/s of both; cli.export ->
+                cli.predict --artifact against cli.predict from the
+                checkpoint on a mvsa tree.
+ 17. towers   - the tube-3D embedding with patch dropout and 7-D input at
+                languagebind_large("video") widths, card f32 (the kernels)
+                against the CPU (the plain versions): pooled features and
+                temporal LoRA gradients, exact launches.
+ 18. summary  - a `{"kernels": [...]}` line, the card's name and power limit,
                 and as the last line {"ok": true, "device": {...}}.
+The kernels phase also times each `missm` custom op's host cost a call
+against the `_launch` it wraps.
 --profile adds one torch.profiler-traced step of each of eval, train, eval3,
 train3, ln2fc1 eval and ln2fc1 train and prints device time by kernel.
 """
@@ -269,6 +296,24 @@ COVERS.update({
                    + DATA_SPLITS["valid"] // CLI_BATCH),
     "cli test": 30 * -(-DATA_SPLITS["test"] // 64),
     "cli predict": -(-DATA_SPLITS["test"] // 64)})
+# remat: bench.py's train policy and train3 spec (bench.py:142, 208-210);
+# a named policy's gradients against no remat's on the card, f32 without
+# TF32: the same kernels on the same inputs, so only a changed summation
+# would show
+REMAT_BENCH = "save_attn_mlp_qkv_kern"
+REMAT_TRAIN3 = (("video", "save_attn_mlp_qkv"), ("audio", "save_attn_mlp_kern"),
+                ("language", "save_attn_mlp"))
+REMAT_GRAD_RTOL = 1e-5
+# export: the artifact against the Predictor on the same params and inputs
+# (the same ops, traced; bf16 encoder, f32 probs)
+EXPORT_PROBS_ATOL = 1e-6
+EXPORT_BATCHES = 5                      # timed predict_arrays calls an arm
+TOWERS_B = 2                            # towers: videos of the tube-3D case
+COVERS.update({
+    "remat policies": 9, "remat cli": (DATA_SPLITS["train"] // CLI_BATCH
+                                       + DATA_SPLITS["valid"] // CLI_BATCH),
+    "export artifact": 4, "export cli": -(-DATA_SPLITS["test"] // B),
+    "towers tube3d": 1, "towers 7-D": 1})
 RATES = {}                              # samples/s by timed_train's name
 
 
@@ -547,9 +592,81 @@ def kernel_phase(dev, rng):
         rows.append(backward_row(dev, gen, spec, by_name[spec["forward"]]))
     rows += [ln_linear_row(dev, gen), mlp_bwd_row(dev, gen)]
     rows += probe_rows(dev, gen)
+    op_host_us(dev, gen, rows)
     for row in rows:
         summarise_checks(row)
     return rows
+
+
+def op_host_us(dev, gen, rows, calls=300):
+    """Host microseconds a call of each `missm` custom op against a direct
+    call of the `_launch` it wraps, at small shapes (one batch row, so the
+    card keeps up with the host): the min over two turns of `calls` calls
+    each, op and launch in turns (op, launch, launch, op). Adds
+    "host_us_op" and "host_us_launch" to the rows of the kernels each op
+    launches."""
+    from missm_tpu_torch.kernels import attention as K
+    from missm_tpu_torch.kernels import ln_linear as lnl
+
+    def qkv(b, n, d):
+        return [torch.randn(b, n, d, generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(4)]
+
+    q, k, v, g = qkv(1, 257, 1024)
+    out, lse = K._launch(q, k, v, None, 16, causal=False, want_lse=True)
+    tq, tk, tv, tg = qkv(1, 77, 768)
+    sq, sk, sv, sg = qkv(257, FRAMES, 1024)
+    x, ln, lin = ln_inputs(dev, gen, 128, 1024, 4096, torch.bfloat16, True)
+    ops = {
+        "attention": (
+            lambda: torch.ops.missm.attention(q, k, v, 16, False),
+            lambda: K._launch(q, k, v, None, 16, causal=False)),
+        "attention_bwd": (
+            lambda: torch.ops.missm.attention_bwd(q, k, v, out, lse, g, 16),
+            lambda: K._launch_bwd(q, k, v, out, lse, g, 16)),
+        "causal_attention": (
+            lambda: torch.ops.missm.causal_attention(tq, tk, tv, None, 12),
+            lambda: K._launch(tq, tk, tv, None, 12, causal=True)),
+        "short_attention": (
+            lambda: torch.ops.missm.short_attention(sq, sk, sv, 16),
+            lambda: K._launch_short(sq, sk, sv, 16)),
+        "short_attention_bwd": (
+            lambda: torch.ops.missm.short_attention_bwd(sq, sk, sv, sg, 16),
+            lambda: K._launch_short_bwd(sq, sk, sv, sg, 16)),
+        "ln_linear": (
+            lambda: torch.ops.missm.ln_linear(x, ln["scale"], ln["bias"],
+                                              lin["w"], lin["b"], 1e-5),
+            lambda: lnl._launch(x, ln["scale"], ln["bias"], lin["w"],
+                                lin["b"], 1e-5))}
+    per_row = {"attention": "attention", "attention_unsplit": "attention",
+               "attention_bwd": "attention_bwd",
+               "attention_unsplit_bwd": "attention_bwd",
+               "causal_attention": "causal_attention",
+               "short_attention": "short_attention",
+               "short_attention_bwd": "short_attention_bwd",
+               "ln_linear": "ln_linear"}
+    result = {}
+    for name, (op, launch) in ops.items():
+        times = {"op": [], "launch": []}
+        for arm in ("op", "launch", "launch", "op"):
+            fn = op if arm == "op" else launch
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times[arm].append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+        result[name] = (min(times["op"]), min(times["launch"]))
+        print(f"host us a call: missm::{name} {result[name][0]:.2f}, its "
+              f"_launch {result[name][1]:.2f} (+{result[name][0] - result[name][1]:.2f})",
+              flush=True)
+    for row in rows:
+        if row["name"] in per_row:
+            row["host_us_op"], row["host_us_launch"] = result[
+                per_row[row["name"]]]
+    return result
 
 
 def bound(io_bytes, flops):
@@ -1397,13 +1514,16 @@ def grad_check(dev, name, cfg, params, batch, watched, expect):
                              f"CPU's")
 
 
-def train3_phase(dev, rng, card, profile):
+def train3_phase(dev, rng, card, profile, remat=None):
+    """bench.py's train3 step; given a `remat` (the remat phase: bench.py's
+    per-tower spec), under it, without the profile and the f32 gradients."""
     from missm_tpu_torch.models import finetune
+    from missm_tpu_torch.models.encoder import _remat_for
     from missm_tpu_torch.train.step import init_train_state, make_train_step
     from missm_tpu_torch.train.trainability import (FROZEN, cast_frozen_params,
                                                     leaves, param_labels)
 
-    cfg = train3_config("bfloat16")
+    cfg = dataclasses.replace(train3_config("bfloat16"), remat=remat or False)
     # bench.py's frozen_bf16=True: the frozen leaves stored in bf16
     params = cast_frozen_params(
         finetune.init_model_params(cfg, seed=0, device=dev), cfg)
@@ -1438,17 +1558,26 @@ def train3_phase(dev, rng, card, profile):
         **{f"fusion proj {m} w": params["fusion"]["proj"][m]["w"]
            for m in ("language", "video", "audio")}}
     video_cfg, audio_cfg = (t.vision for _, t in cfg.towers)
-    # no remat: each forward kernel once per layer and each backward once;
-    # the text tower's causal attention has a plain backward
+    n_text = cfg.towers[-1][1].text.num_layers
+    pv, pa, pl = (_remat_for(cfg.remat, m) for m in ("video", "audio",
+                                                     "language"))
+    # each forward kernel once per layer, and again where the backward's
+    # recompute does not find its output kept; each backward once; the
+    # text tower's causal attention has a plain backward
     state, launches, _ = timed_train(
-        "train3", step, state, batch, params, cfg, moving,
-        dict(attention=video_cfg.num_layers,
+        "train3" + ("" if remat is None else f" remat={remat}"), step,
+        state, batch, params,
+        cfg, moving,
+        dict(attention=video_cfg.num_layers * (1 + replays(pv)),
              attention_bwd=video_cfg.num_layers,
-             short_attention=video_cfg.num_layers,
+             short_attention=video_cfg.num_layers
+             * (1 + replays(pv, "tattn_kernel_out")),
              short_attention_bwd=video_cfg.num_layers,
-             attention_unsplit=audio_cfg.num_layers,
+             attention_unsplit=audio_cfg.num_layers * (1 + replays(pa)),
              attention_unsplit_bwd=audio_cfg.num_layers,
-             causal_attention=cfg.towers[-1][1].text.num_layers), card)
+             causal_attention=n_text * (1 + replays(pl))), card)
+    if remat is not None:
+        return launches
 
     if profile:
         profile_step("train3", lambda: step(state, *batch))
@@ -1503,18 +1632,20 @@ def train3_grads(dev, rng):
                     attention_unsplit_bwd=audio))
 
 
-def flagship_train_inputs(dev, rng, fusion_type="sum"):
+def flagship_train_inputs(dev, rng, fusion_type="sum", remat=False):
     """bench.py's train batch for the flagship model (ids without a mask,
     f32 images, codes from {0, 1, 4}, lr, the head's dropout generator), its
     seeded f32 params and the train step over 4 x 16 microbatches with its
-    Adam state; for MTD_stu and KL_stu the state holds a teacher, a copy of
-    a seeded Distill_tea head. Returns (cfg, params, state, step, batch)."""
+    Adam state, under `remat`; for MTD_stu and KL_stu the state holds a
+    teacher, a copy of a seeded Distill_tea head. Returns (cfg, params,
+    state, step, batch)."""
     from missm_tpu_torch.models import finetune
     from missm_tpu_torch.models.fusion import init_fusion
     from missm_tpu_torch.train.step import (TEACHER_TYPES, init_train_state,
                                             make_train_step)
 
-    cfg = flagship_config("bfloat16", fusion_type=fusion_type)
+    cfg = dataclasses.replace(
+        flagship_config("bfloat16", fusion_type=fusion_type), remat=remat)
     params = finetune.init_model_params(cfg, seed=0, device=dev)
     teacher = None
     if fusion_type in TEACHER_TYPES:
@@ -1534,17 +1665,22 @@ def flagship_train_inputs(dev, rng, fusion_type="sum"):
                                                device=dev), batch
 
 
+def flagship_moving(params):
+    """The flagship train step's watched trainable leaves."""
+    blocks = params["encoder"]["image"]["vision"]["blocks"]
+    return {"vision block 0 q lora_b": blocks[0]["attn"]["q"]["lora_b"],
+            "vision last block out lora_b": blocks[-1]["attn"]["out"]
+            ["lora_b"],
+            "text block 0 q w": params["encoder"]["language"]["text"]
+            ["blocks"][0]["attn"]["q"]["w"],
+            "patch_embedding": params["encoder"]["image"]["vision"]
+            ["patch_embedding"]["w"],
+            "fusion proj image w": params["fusion"]["proj"]["image"]["w"]}
+
+
 def train_phase(dev, rng, card, profile):
     cfg, params, state, step, batch = flagship_train_inputs(dev, rng)
-
-    blocks = params["encoder"]["image"]["vision"]["blocks"]
-    moving = {"vision block 0 q lora_b": blocks[0]["attn"]["q"]["lora_b"],
-              "vision last block out lora_b": blocks[-1]["attn"]["out"]["lora_b"],
-              "text block 0 q w": params["encoder"]["language"]["text"]
-              ["blocks"][0]["attn"]["q"]["w"],
-              "patch_embedding": params["encoder"]["image"]["vision"]
-              ["patch_embedding"]["w"],
-              "fusion proj image w": params["fusion"]["proj"]["image"]["w"]}
+    moving = flagship_moving(params)
     n_vision, n_text = layers(cfg)
     # N=257 takes the CLS-split route, so nothing reaches the unsplit counts
     state, launches, _ = timed_train(
@@ -1554,7 +1690,7 @@ def train_phase(dev, rng, card, profile):
 
     if profile:
         profile_step("train", lambda: step(state, *batch))
-    del state, step, params, batch, moving, blocks
+    del state, step, params, batch, moving
     flagship_grads(dev, rng)
     return launches
 
@@ -2870,6 +3006,438 @@ def cli_phase(dev, rng, card, profile):
     return paths
 
 
+def replays(policy, tag="attn_kernel_out"):
+    """1 where the backward's recompute under `policy` runs a block's
+    forward attention kernel again (its output, named `tag`, not kept),
+    else 0; models/tower.py::REMAT_POLICIES names what each policy keeps."""
+    from missm_tpu_torch.models.tower import REMAT_POLICIES
+
+    if policy is False or policy == "save_most":
+        return 0
+    return int(policy is True or tag not in REMAT_POLICIES[policy])
+
+
+def flagship_remat_expect(policy, n_vision, n_text, micro):
+    """The flagship train step's launches over `micro` microbatches."""
+    return {"attention": n_vision * micro * (1 + replays(policy)),
+            "attention_bwd": n_vision * micro,
+            "causal_attention": n_text * micro * (1 + replays(policy))}
+
+
+def remat_policies(dev, rng, card):
+    """Each named policy once on a 16-row flagship microbatch in f32 (TF32
+    off): the gradients of the watched leaves against the no-remat ones on
+    the card within REMAT_GRAD_RTOL, the exact launches and the peak memory.
+    Returns the launch counts summed over the nine."""
+    from missm_tpu_torch.kernels import attention as K
+    from missm_tpu_torch.models import finetune
+    from missm_tpu_torch.models.tower import REMAT_POLICIES
+    from missm_tpu_torch.train.step import compute_loss, partition_trainable
+    from missm_tpu_torch.train.trainability import leaves
+
+    b = B // ACCUM
+    cfg = flagship_config("float32", dropout_prob=0.0)
+    n_vision, n_text = layers(cfg)
+    params = finetune.init_model_params(cfg, seed=1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for block in params["encoder"]["image"]["vision"]["blocks"]:
+        for proj in block["attn"].values():
+            proj["lora_b"].normal_(0.0, 0.01, generator=gen)
+    partition_trainable(params, cfg)
+    ids, mask = text_batch(rng, b, vary_length=True)
+    data = {"language": {"input_ids": torch.as_tensor(ids, device=dev),
+                         "attention_mask": torch.as_tensor(mask, device=dev)},
+            "image": torch.as_tensor(rng.standard_normal(
+                (b, 3, *cfg.towers[0][1].vision.image_size))
+                .astype(np.float32), device=dev)}
+    labels = torch.as_tensor(rng.integers(0, 10, b), device=dev)
+    codes = torch.as_tensor(rng.choice([0, 1, 4], b), device=dev)
+    watched = dict(flagship_moving(params), **{
+        "vision block 0 q lora_a": params["encoder"]["image"]["vision"]
+        ["blocks"][0]["attn"]["q"]["lora_a"],
+        "vision last block out lora_a": params["encoder"]["image"]["vision"]
+        ["blocks"][-1]["attn"]["out"]["lora_a"]})
+
+    def grads(remat):
+        for t in leaves(params):
+            t.grad = None
+        c = dataclasses.replace(cfg, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        loss, _ = compute_loss(params, None, c, data, labels, codes, None,
+                               device=dev)
+        loss.backward()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out = {k: t.grad.clone() for k, t in watched.items()}
+        return (out, dict(K.LAUNCHES), torch.cuda.max_memory_allocated(),
+                dt)
+
+    total = {}
+    with no_tf32():
+        grads(False)  # warm-up: cuBLAS plans
+        ref, launches, peak, dt = grads(False)
+        print(f"remat policies: no remat, {b} rows f32: peak "
+              f"{peak / 2**30:.2f} GiB, {dt * 1e3:.1f} ms forward + backward, "
+              f"launches {launches} [{card}]", flush=True)
+        for policy in REMAT_POLICIES:
+            got, launches, peak, dt = grads(policy)
+            rel = max(((got[k] - ref[k]).norm() / ref[k].norm()).item()
+                      for k in ref)
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+            print(f"remat policies: {policy}, {b} rows f32: peak "
+                  f"{peak / 2**30:.2f} GiB, {dt * 1e3:.1f} ms forward + "
+                  f"backward, launches {launches}, gradients vs no remat "
+                  f"{rel:.2e} (limit {REMAT_GRAD_RTOL}) [{card}]",
+                  flush=True)
+            check_launches(f"remat {policy}", launches, flagship_remat_expect(
+                policy, n_vision, n_text, 1))
+            if not rel <= REMAT_GRAD_RTOL:
+                raise AssertionError(f"remat {policy}: gradients {rel:.3e} "
+                                     f"from no remat's")
+    return total
+
+
+def remat_cli(dev, rng, card):
+    """cli.train --remat save_attn_mlp_qkv_kern on the data phase's tree,
+    written anew: one epoch at B=16, K1 24, K3 24 and K2(a) 12 a step (no
+    forward kernel again in the backward), every train-step K1 writing the
+    log-sum-exp, and K1 24, K2(a) 12 a val batch."""
+    from missm_tpu_torch.cli import train as cli_train
+    from missm_tpu_torch.cli.common import build_model_config
+    from missm_tpu_torch.compat.args import train_args
+    from missm_tpu_torch.kernels import attention as K
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        csv = write_mvsa_tree(os.path.join(root, "mvsa"), rng)
+        os.makedirs(os.path.join(root, "run"))
+        os.chdir(os.path.join(root, "run"))
+        try:
+            argv = cli_argv(csv, dev, "--init", "random", "--batch_size",
+                            str(CLI_BATCH), "--num_epochs", "1", "--seed",
+                            "0", "--remat", REMAT_BENCH)
+            n_vision, n_text = layers(build_model_config(train_args(argv),
+                                                         10))
+            steps = DATA_SPLITS["train"] // CLI_BATCH
+            val = DATA_SPLITS["valid"] // CLI_BATCH
+            writes, lse = [], {"lse": 0}
+            K.reset_launches()
+            with checkpoint_writes(writes), lse_launches(lse):
+                _, hist = cli_train.main(argv)
+            torch.cuda.synchronize()
+            launches = dict(K.LAUNCHES)
+            check_launches("remat cli", launches, {
+                "attention": n_vision * (steps + val),
+                "attention_bwd": n_vision * steps,
+                "causal_attention": n_text * (steps + val)}, lse["lse"],
+                n_vision * steps)
+            train_report(f"remat cli --remat {REMAT_BENCH}", hist, writes,
+                         card)
+            if not (len(hist) == 1 and math.isfinite(hist[0]["train_loss"])):
+                raise AssertionError(f"remat cli: history {hist}")
+        finally:
+            os.chdir(cwd)
+    return launches
+
+
+def remat_phase(dev, rng, card, profile):
+    """The named remat policies at full width (models/tower.py::
+    REMAT_POLICIES): the flagship train step of 4 x 16 under bench.py's
+    save_attn_mlp_qkv_kern (K1 96, every one writing the log-sum-exp, K3
+    96, K2(a) 48: no forward kernel again in the backward) and under full
+    remat (192 / 96 / 96); each of the nine policies once on a 16-row
+    microbatch against no remat; train3 at B=8 under bench.py's per-tower
+    spec; cli.train --remat save_attn_mlp_qkv_kern. Returns the launch
+    counts by path."""
+    from missm_tpu_torch.kernels import attention as K
+
+    paths = {}
+    for remat in (REMAT_BENCH, True):
+        cfg, params, state, step, batch = flagship_train_inputs(
+            dev, rng, remat=remat)
+        n_vision, n_text = layers(cfg)
+        expect = flagship_remat_expect(remat, n_vision, n_text, ACCUM)
+        lse = {"lse": 0}
+        with lse_launches(lse):
+            state, launches, _ = timed_train(
+                f"remat {remat} train ({ACCUM} x {B // ACCUM})", step, state,
+                batch, params, cfg, flagship_moving(params), expect, card)
+        check_launches(f"remat {remat}", launches,
+                       {k: n * STEPS for k, n in expect.items()}, lse["lse"],
+                       (2 + STEPS) * expect["attention"])
+        paths[f"remat {remat}"] = launches
+        del cfg, params, state, step, batch
+        torch.cuda.empty_cache()
+    paths["remat policies"] = remat_policies(dev, rng, card)
+    torch.cuda.empty_cache()
+    paths["remat train3"] = train3_phase(dev, rng, card, False,
+                                         remat=REMAT_TRAIN3)
+    torch.cuda.empty_cache()
+    paths["remat cli"] = remat_cli(dev, rng, card)
+    K.reset_launches()
+    torch.cuda.empty_cache()
+    return paths
+
+
+_ARTIFACT_CHILD = """
+import json, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+from missm_tpu_torch.eval.artifact import load_artifact
+from missm_tpu_torch.kernels.launches import LAUNCHES, reset_launches
+t0 = time.perf_counter()
+art = load_artifact(sys.argv[2], device=sys.argv[5])
+load_s = time.perf_counter() - t0
+inputs = torch.load(sys.argv[3])
+reset_launches()
+out = [art.predict_arrays(inputs["data"], m) for m in inputs["codes"]]
+torch.save(out, sys.argv[4])
+print(json.dumps({"load_s": load_s, "launches": dict(LAUNCHES)}))
+"""
+
+
+def export_phase(dev, rng, card, profile):
+    """Serving artifacts (eval/artifact.py): the flagship (bf16 encoder)
+    exported on the card at B=64 from eval's inputs; model.pt2's bytes; the
+    artifact loaded in a fresh subprocess; predict_arrays against the
+    Predictor on the same params (preds equal, probs within
+    EXPORT_PROBS_ATOL), in process and from the subprocess, for each
+    missing-code set and a partial batch of 37; K1 24 and K2(a) 12 a batch
+    from the artifact; rows/s of both in turns; then cli.export ->
+    cli.predict --artifact on the mvsa tree against cli.predict from the
+    checkpoint. Returns the launch counts by path."""
+    from missm_tpu_torch.cli import export as cli_export
+    from missm_tpu_torch.cli import predict as cli_predict
+    from missm_tpu_torch.eval.artifact import (ARTIFACT_FILE, export_artifact,
+                                               load_artifact)
+    from missm_tpu_torch.eval.predictor import Predictor
+    from missm_tpu_torch.kernels import attention as K
+    from missm_tpu_torch.models.finetune import tree_map
+    from missm_tpu_torch.train.checkpoint import save_checkpoint
+
+    cfg, params, _, _, (data, _, masks) = flagship_eval_inputs(dev, rng)
+    n_vision, n_text = layers(cfg)
+    codes = [m.cpu().numpy().astype(np.int32) for m in masks]
+    part = tree_map(lambda t: t[:37], data)
+    paths = {}
+    with tempfile.TemporaryDirectory() as root:
+        art_dir = os.path.join(root, "artifact")
+        K.reset_launches()
+        t0 = time.perf_counter()
+        export_artifact(params, cfg, data, art_dir, device=dev)
+        export_s = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(art_dir, ARTIFACT_FILE))
+        if any(K.LAUNCHES.values()):
+            raise AssertionError(f"export launched {dict(K.LAUNCHES)}")
+        print(f"export: the flagship at B={B} exported on the card in "
+              f"{export_s:.1f} s, model.pt2 {size} bytes "
+              f"({size / 2**30:.3f} GiB) [{card}]", flush=True)
+
+        pred = Predictor(params, cfg, batch_size=B, device=dev)
+        want = [pred.predict_arrays(data, c) for c in codes]
+        want_part = pred.predict_arrays(part, codes[0][:37])
+
+        def same(name, got, ref):
+            err = float(np.abs(got[1] - ref[1]).max())
+            ok = np.array_equal(got[0], ref[0]) and err <= EXPORT_PROBS_ATOL
+            print(f"export {name}: preds {'equal' if ok else 'DIFFER'}, "
+                  f"probs max abs err {err:.2e} (limit "
+                  f"{EXPORT_PROBS_ATOL})", flush=True)
+            if not ok:
+                raise AssertionError(f"export {name}: the artifact disagrees "
+                                     f"with the Predictor")
+
+        # a fresh process: the artifact and the op registrations only
+        inputs = os.path.join(root, "inputs.pt")
+        torch.save({"data": tree_map(lambda t: t.cpu(), data),
+                    "codes": [torch.from_numpy(c) for c in codes]}, inputs)
+        out = os.path.join(root, "out.pt")
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__)))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _ARTIFACT_CHILD,
+             os.path.dirname(os.path.abspath(__file__)), art_dir, inputs,
+             out, dev.type], capture_output=True, text=True, env=env,
+            timeout=CLI_CHILD_TIMEOUT)
+        if proc.returncode != 0:
+            raise AssertionError(f"artifact subprocess: {proc.stderr[-3000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"export subprocess: {time.perf_counter() - t0:.1f} s, the "
+              f"load {child['load_s']:.1f} s, launches {child['launches']}",
+              flush=True)
+        for i, got in enumerate(torch.load(out, weights_only=False)):
+            same(f"subprocess codes {i}", got, want[i])
+        check_launches("export subprocess", child["launches"], {
+            "attention": n_vision * len(codes),
+            "causal_attention": n_text * len(codes)})
+
+        art = load_artifact(art_dir, device=dev)
+        K.reset_launches()
+        got = [art.predict_arrays(data, c) for c in codes]
+        torch.cuda.synchronize()
+        paths["export artifact"] = launches = dict(K.LAUNCHES)
+        check_launches("export artifact", launches, {
+            "attention": n_vision * len(codes),
+            "causal_attention": n_text * len(codes)})
+        for i, g in enumerate(got):
+            same(f"codes {i}", g, want[i])
+        same("partial batch of 37", art.predict_arrays(part, codes[0][:37]),
+             want_part)
+
+        rates = {"predictor": [], "artifact": []}
+        for arm in ("predictor", "artifact", "artifact", "predictor"):
+            serve = pred if arm == "predictor" else art
+            serve.predict_arrays(data, codes[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(EXPORT_BATCHES):
+                serve.predict_arrays(data, codes[i % len(codes)])
+            torch.cuda.synchronize()
+            rates[arm].append(B * EXPORT_BATCHES / (time.perf_counter() - t0))
+        print(f"export rows/s (smoke readings, predict_arrays of B={B} with the "
+              "host copy of the results): "
+              + "; ".join(f"{arm} {', '.join(f'{r:.2f}' for r in v)}"
+                          for arm, v in rates.items()) + f" [{card}]",
+              flush=True)
+        del art, pred, got, want
+        torch.cuda.empty_cache()
+
+        # --- cli.export -> cli.predict --artifact on the mvsa tree
+        cwd = os.getcwd()
+        csv = write_mvsa_tree(os.path.join(root, "mvsa"), rng)
+        os.makedirs(os.path.join(root, "run"))
+        os.chdir(os.path.join(root, "run"))
+        try:
+            save_checkpoint(os.path.join("final_model", "mvsa_sum"),
+                            {"params": params})
+            argv = cli_argv(csv, dev, "--batch_size", str(B), "--split",
+                            "test")
+            K.reset_launches()
+            t0 = time.perf_counter()
+            cli_export.main(argv + ["--output", "artifact"])
+            cli_s = time.perf_counter() - t0
+            K.reset_launches()
+            served = cli_predict.main(argv + ["--output", "art.csv",
+                                              "--artifact", "artifact"])
+            paths["export cli"] = launches = dict(K.LAUNCHES)
+            batches = -(-DATA_SPLITS["test"] // B)
+            check_launches("export cli", launches, {
+                "attention": n_vision * batches,
+                "causal_attention": n_text * batches})
+            ref = cli_predict.main(argv + ["--output", "ckpt.csv"])
+            err = float((served["confidence"] - ref["confidence"]).abs()
+                        .max())
+            print(f"export cli: cli.export in {cli_s:.1f} s; cli.predict "
+                  f"--artifact {len(served)} rows, preds "
+                  f"{'equal' if served['pred'].equals(ref['pred']) else 'DIFFER'}"
+                  f" to the checkpoint's, confidence max abs err {err:.2e}; "
+                  f"launches {launches}", flush=True)
+            if not (served["pred"].equals(ref["pred"])
+                    and err <= EXPORT_PROBS_ATOL
+                    and len(served) == DATA_SPLITS["test"]):
+                raise AssertionError("export cli: the artifact's predictions "
+                                     "differ from the checkpoint's")
+        finally:
+            os.chdir(cwd)
+    K.reset_launches()
+    return paths
+
+
+def towers_phase(dev, rng, card, profile):
+    """What is left of the towers, at languagebind_large("video") widths
+    (24 blocks of 1024, 16 heads, 8 frames of 224 x 224), f32 with TF32
+    off, card (the kernels) against the CPU (the plain versions), seeded
+    random weights with LoRA B non-zero: the tube-3D embedding (tube 2: 4
+    tubes, a CLS each) in train mode with patch dropout 0.5 and the same
+    injected keep indices (129 tokens), TOWERS_B videos, pooled features and
+    the gradients of temporal LoRA leaves, K1 24, K3 24, K2(c) 24, K4
+    block-diagonal 24; then 7-D retrieval-pair input [1, 2, 8, 1, 3, 224,
+    224] (2 videos of 8 frames), pooled features, K1 24 and K2(c) 24.
+    Returns the launch counts by path."""
+    from missm_tpu_torch.core.config import languagebind_large
+    from missm_tpu_torch.kernels import attention as K
+    from missm_tpu_torch.models import finetune
+    from missm_tpu_torch.models import tower
+
+    base = languagebind_large("video")
+    tube = dataclasses.replace(base, vision=dataclasses.replace(
+        base.vision, use_tube3d=True, tube_size=2, force_patch_dropout=0.5))
+    frames, size = base.vision.num_frames, base.vision.image_size
+    gen = torch.Generator().manual_seed(3)
+    cases = (
+        ("tube3d", tube, rng.standard_normal(
+            (TOWERS_B, 3, frames, *size)).astype(np.float32),
+         tower.patch_keep_indices(gen, TOWERS_B, base.vision.num_patches,
+                                  0.5)),
+        ("7-D", base, rng.standard_normal(
+            (1, 2, frames, 1, 3, *size)).astype(np.float32), None))
+    paths = {}
+    for name, cfg, x, keep in cases:
+        vc = cfg.vision
+        params = tower.init_vision_params(
+            torch.Generator().manual_seed(4), vc)
+        for block in params["blocks"]:
+            for proj in block["tattn"].values():
+                proj["lora_b"].normal_(0.0, 0.01, generator=gen)
+        train = keep is not None
+        w = torch.as_tensor(rng.standard_normal(vc.hidden_size)
+                            .astype(np.float32))
+
+        def run(p, device):
+            watched = {"block 0 tattn q lora_a": p["blocks"][0]["tattn"]["q"]
+                       ["lora_a"],
+                       "last block tattn out lora_b": p["blocks"][-1]
+                       ["tattn"]["out"]["lora_b"]}
+            for t in watched.values():
+                t.requires_grad_(train)
+            pooled = tower.vision_features(
+                p, vc, torch.as_tensor(x, device=device), train=train,
+                keep_indices=keep)
+            if not train:
+                return pooled.detach().cpu(), {}
+            g = torch.autograd.grad((pooled * w.to(device)).sum(),
+                                    list(watched.values()))
+            return pooled.detach().cpu(), {k: t.cpu() for k, t in
+                                           zip(watched, g)}
+
+        card_p = finetune.tree_map(lambda t: t.to(dev), params)
+        K.reset_launches()
+        with no_tf32():
+            got, g_card = run(card_p, dev)
+            torch.cuda.synchronize()
+        paths[f"towers {name}"] = launches = dict(K.LAUNCHES)
+        expect = {"attention": vc.num_layers, "short_attention": vc.num_layers}
+        if train:
+            expect.update(attention_bwd=vc.num_layers,
+                          short_attention_bwd=vc.num_layers)
+        check_launches(f"towers {name}", launches, expect)
+        del card_p
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ref, g_cpu = run(params, "cpu")
+        cpu_s = time.perf_counter() - t0
+        err = float((got - ref).abs().max())
+        rel = {k: ((g_card[k] - g_cpu[k]).norm() / g_cpu[k].norm()).item()
+               for k in g_cpu}
+        print(f"towers {name} ({tuple(x.shape)}, train={train}): pooled "
+              f"{tuple(got.shape)}, card f32 vs CPU plain max abs err "
+              f"{err:.2e} (limit {LOGITS_F32_ATOL}); gradients "
+              + (", ".join(f"{k} {v:.2e}" for k, v in rel.items()) or "-")
+              + f" (limit {GRADS_F32_RTOL}); launches {launches}; CPU "
+              f"{cpu_s:.1f} s [{card}]", flush=True)
+        if not (err <= LOGITS_F32_ATOL and torch.isfinite(got).all()
+                and all(v <= GRADS_F32_RTOL for v in rel.values())):
+            raise AssertionError(f"towers {name}: the card disagrees with "
+                                 f"the CPU")
+    K.reset_launches()
+    return paths
+
+
 def probes_phase(dev):
     """Every probe once, every count from 0 (missm_tpu_torch.probes): the
     ln_linear probe (the 24-layer image stack at B=64, forward and forward
@@ -3066,7 +3634,8 @@ def main() -> int:
     # each returns its launch counts by path
     for path, phase in (("heads", heads_phase), ("distill", distill_phase),
                         ("sweep", sweep_phase), ("data", data_phase),
-                        ("cli", cli_phase)):
+                        ("cli", cli_phase), ("remat", remat_phase),
+                        ("export", export_phase), ("towers", towers_phase)):
         t0 = time.perf_counter()
         paths.update(phase(dev, rng, card, args.profile))
         print(f"phase {path}: {time.perf_counter() - t0:.1f} s", flush=True)

@@ -10,13 +10,14 @@ is silently ignored:
 
   runs:   --config, --model_scale, --init, --checkpoint_dir, --vocab_file,
           --merges_file, --hash_tokenizer, --reference_randomness,
-          --video_decode_backend, --remat true|false (also per modality),
+          --video_decode_backend, --remat true|false|a named policy (also
+          per modality),
           --grad_accum, --checkpoint_every, --resume, --profile_dir,
           --bf16, --frozen_bf16, --device
   raises: --mesh_model > 1, --fsdp, --mesh_pipe > 1, --pipe_microbatches,
           --pipe_schedule 1f1b and --distributed (parallel layouts, ROADMAP
-          queue 1 item 9); a named --remat policy (item 8);
-          --uint8_upload true (the data layer has no quantized upload)
+          queue 1 item 9); --uint8_upload true (the data layer has no
+          quantized upload)
 
 `--device` (the port's `device=`) defaults to `cuda` in both parsers, as
 the JAX package's test parser defaults to `tpu`; `--device cpu` runs the
@@ -157,10 +158,11 @@ def _extras(p: argparse.ArgumentParser):
                         "configuration_video.py:205)")
     p.add_argument("--remat", type=_remat, default=True,
                    help="true (recompute each tower block in the backward, "
-                        "keeping only its input), false, or a per-modality "
-                        "spec like 'video=true,audio=false'. The named "
-                        "policies (save_attn, save_most, ...) parse but "
-                        "raise: not ported, ROADMAP queue 1 item 8")
+                        "keeping only its input), false, a named policy "
+                        "that also keeps the values it names ("
+                        + ", ".join(_REMAT_POLICIES) + "), or a "
+                        "per-modality spec like "
+                        "'video=save_attn_mlp_qkv_tkern,audio=false'")
     p.add_argument("--grad_accum", type=int, default=1,
                    help="gradient-accumulation microbatches per step: the "
                         "batch splits into N equal microbatches run one "
@@ -265,12 +267,6 @@ def test_args(argv=None) -> argparse.Namespace:
     return _finalize(parser, argv)
 
 
-def _remat_policies(remat):
-    """The named policies in a --remat value (one value or a spec)."""
-    values = [v for _, v in remat] if isinstance(remat, tuple) else [remat]
-    return [v for v in values if isinstance(v, str)]
-
-
 def _finalize(parser: argparse.ArgumentParser, argv):
     args = parser.parse_args(argv)
     if args.config:
@@ -295,11 +291,6 @@ def _finalize(parser: argparse.ArgumentParser, argv):
     for given, flag in unported:
         if given:
             parser.error(f"{flag} is {_ITEM9}")
-    policies = _remat_policies(args.remat)
-    if policies:
-        parser.error(f"--remat policy {policies[0]!r} is not ported: the "
-                     "named remat policies are ROADMAP queue 1 item 8 "
-                     "(true and false run)")
     if args.uint8_upload:
         parser.error("--uint8_upload true is not ported: the port's data "
                      "layer resizes on the card and has no quantized host "

@@ -15,9 +15,9 @@ Handles:
   (`resize_pos`, image/modeling_image.py:795-841).
 
 Linear weights transpose from torch's (out, in) to (in, out); the conv
-patch embedding flattens to one (C*p*p, D) matmul weight. Every leaf keeps
-the checkpoint's dtype. The tube-3D inflation of 2-D checkpoints waits for
-the tube-3D embedding (ROADMAP queue 1 item 7).
+patch embedding flattens to one (C*p*p, D) matmul weight ((C*tube*p*p, D)
+for the tube-3D embedding, into which a 2-D checkpoint inflates, its CLS
+repeated a tube). Every leaf keeps the checkpoint's dtype.
 """
 from __future__ import annotations
 
@@ -120,10 +120,6 @@ def resize_position_embedding(pos_embed, new_grid,
 
 
 def _vision_params(sd, cfg: VisionConfig, prefix="vision_model."):
-    if cfg.use_tube3d:
-        raise NotImplementedError(
-            "converting into the tube-3D embedding is not ported yet "
-            "(ROADMAP queue 1 item 7)")
     blocks = []
     for i in range(cfg.num_layers):
         lp = f"{prefix}encoder.layers.{i}."
@@ -144,9 +140,22 @@ def _vision_params(sd, cfg: VisionConfig, prefix="vision_model."):
                 b["tmlp"] = _mlp(sd, lp + "temporal_mlp", lora=True)
         blocks.append(b)
 
-    # Conv2d (D, C, p, p) -> one (C*p*p, D) matmul weight
     patch_w = sd[prefix + "embeddings.patch_embedding.weight"]
+    if cfg.use_tube3d and patch_w.dim() == 4:
+        # expand3d inflation of a Conv2d checkpoint into the tube-3D Conv3d
+        # (video/modeling_video.py:80-104): the 2-D weights in tube slot 0,
+        # the later slots zero
+        zeros = torch.zeros_like(patch_w[:, :, None])
+        patch_w = torch.cat([patch_w[:, :, None]]
+                            + [zeros] * (cfg.tube_size - 1), dim=2)
+    # Conv3d (D, C, tube, p, p) or Conv2d (D, C, p, p) -> one matmul weight
     patch_w = patch_w.reshape(patch_w.shape[0], -1).T.contiguous()
+
+    cls = sd[prefix + "embeddings.class_embedding"]
+    if cfg.use_tube3d and cls.dim() == 1:
+        # per-tube CLS tokens: repeat(num_frames // tube_size, 1)
+        # (video/modeling_video.py:103)
+        cls = cls[None].repeat(cfg.num_frames // cfg.tube_size, 1)
 
     pos = sd[prefix + "embeddings.position_embedding.weight"]
     if pos.shape[0] != cfg.num_patches + 1:
@@ -156,7 +165,7 @@ def _vision_params(sd, cfg: VisionConfig, prefix="vision_model."):
     pre_key = (prefix + "pre_layrnorm" if prefix + "pre_layrnorm.weight" in sd
                else prefix + "pre_layernorm")
     return {
-        "class_embedding": sd[prefix + "embeddings.class_embedding"],
+        "class_embedding": cls,
         "patch_embedding": {"w": patch_w},
         "position_embedding": pos,
         "pre_ln": _ln(sd, pre_key),

@@ -34,9 +34,11 @@ and shared memory, as the C launchers compute them.
 
 q, k, v and the output are [B, N, H*hd] ([M, T, H*hd] for short_attention).
 Scores, softmax and accumulation are f32; the output has the input's type
-(bf16 or f32). On a CPU tensor a wrapper computes the plain version under
-plain autograd; on a CUDA tensor it launches the kernel or raises. Each
-launch adds one to its count in `LAUNCHES`.
+(bf16 or f32). Each wrapper calls a torch custom op (namespace `missm`,
+listed in kernels/ops.py): on a CPU tensor the op computes the plain
+version, on a CUDA tensor it launches the kernel or raises, and each launch
+adds one to its count in `LAUNCHES`. The backwards are ops too, so an
+exported program and selective checkpointing see every kernel call.
 """
 from __future__ import annotations
 
@@ -162,8 +164,8 @@ def causal_attention_bwd_plain(q, k, v, kbias, g, num_heads: int):
 
 
 def _recorded(*tensors) -> bool:
-    """Whether autograd records this call (a Function's needs_input_grad
-    does not say whether grad mode is on)."""
+    """Whether autograd records this call: a wrapper asks the forward
+    kernel for the log-sum-exp only then."""
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
 
@@ -179,105 +181,216 @@ def attention_route(n: int, num_heads: int, head_dim: int) -> str:
 
 
 def attention(q, k, v, num_heads: int):
-    """softmax(q k^T hd^-0.5) v per (batch, head); the forward kernel, the
-    backward kernel for its gradient. Only a recorded call writes the
-    log-sum-exp that the backward kernel needs; a call autograd does not
-    record launches the forward alone, without a Function around it."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, num_heads)
-    if _recorded(q, k, v):
-        return _Attention.apply(q, k, v, num_heads, True)
-    out, _ = _launch(q, k, v, None, num_heads, causal=False)
-    LAUNCHES[attention_route(q.shape[1], num_heads,
-                             q.shape[2] // num_heads)] += 1
+    """softmax(q k^T hd^-0.5) v per (batch, head): `missm::attention`, whose
+    gradient is `missm::attention_bwd`. Only a call that autograd records
+    has the forward kernel write the log-sum-exp the backward reads."""
+    out, _ = torch.ops.missm.attention(q, k, v, num_heads,
+                                       _recorded(q, k, v))
     return out
 
 
 def causal_attention(q, k, v, kbias, num_heads: int):
     """Causal attention with an optional additive key bias [B, 1, N] f32
-    (finfo.min at padded keys), added before the causal mask; K2 mode a
-    forward, plain PyTorch backward (a call autograd does not record
-    launches the forward alone)."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, num_heads, causal=True, kbias=kbias)
-    if _recorded(q, k, v, kbias):
-        return _CausalAttention.apply(q, k, v, kbias, num_heads)
+    (finfo.min at padded keys), added before the causal mask:
+    `missm::causal_attention`, K2 mode a forward, plain PyTorch backward."""
+    return torch.ops.missm.causal_attention(q, k, v, kbias, num_heads)
+
+
+def short_attention(q, k, v, num_heads: int):
+    """Attention within each instance of q, k, v [M, T, H*hd], T <= 32:
+    `missm::short_attention`, K2 mode c forward, K4 block-diagonal
+    backward (`missm::short_attention_bwd`)."""
+    return torch.ops.missm.short_attention(q, k, v, num_heads)
+
+
+# ---------------------------------------------------------------------------
+# The custom ops (namespace missm; kernels/ops.py lists them). The CPU
+# kernel of each is its plain version, the CUDA kernel the hand kernel,
+# which raises on what it does not take and counts each launch; the fake
+# gives the exact output shapes and types, so torch.export and selective
+# checkpointing see every call.
+# ---------------------------------------------------------------------------
+
+
+def _lse_plain(q, k, num_heads):
+    """The per-row log-sum-exp [B, H, N] f32 of the scaled scores."""
+    B, N, D = q.shape
+    hd = D // num_heads
+    s = torch.einsum("bqhd,bkhd->bhqk",
+                     (q * hd ** -0.5).reshape(B, N, num_heads, hd).float(),
+                     k.reshape(B, N, num_heads, hd).float())
+    return torch.logsumexp(s, dim=-1)
+
+
+def _no_lse(q):
+    return q.new_empty((0,), dtype=torch.float32)
+
+
+@torch.library.custom_op(
+    "missm::attention", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, int num_heads, bool want_lse) "
+           "-> (Tensor, Tensor)")
+def _attention_op(q, k, v, num_heads, want_lse):
+    """(out, lse [B, H, N] f32, or an empty tensor without want_lse)."""
+    lse = _lse_plain(q, k, num_heads) if want_lse else _no_lse(q)
+    return attention_plain(q, k, v, num_heads), lse
+
+
+@_attention_op.register_kernel("cuda")
+def _(q, k, v, num_heads, want_lse):
+    out, lse = _launch(q, k, v, None, num_heads, causal=False,
+                       want_lse=want_lse)
+    LAUNCHES[attention_route(q.shape[1], num_heads,
+                             q.shape[2] // num_heads)] += 1
+    return out, _no_lse(q) if lse is None else lse
+
+
+@_attention_op.register_fake
+def _(q, k, v, num_heads, want_lse):
+    B, N, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((B, num_heads, N) if want_lse else (0,),
+                        dtype=torch.float32))
+
+
+@torch.library.custom_op(
+    "missm::attention_bwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, "
+           "Tensor g, int num_heads) -> (Tensor, Tensor, Tensor)")
+def _attention_bwd_op(q, k, v, out, lse, g, num_heads):
+    """(dq, dk, dv) for the output cotangent g (K3, K4 unmasked)."""
+    return tuple(attention_bwd_plain(q, k, v, g, num_heads))
+
+
+@_attention_bwd_op.register_kernel("cuda")
+def _(q, k, v, out, lse, g, num_heads):
+    grads = _launch_bwd(q, k, v, out, lse, g.contiguous(), num_heads)
+    LAUNCHES[attention_route(q.shape[1], num_heads,
+                             q.shape[2] // num_heads) + "_bwd"] += 1
+    return grads
+
+
+@_attention_bwd_op.register_fake
+def _(q, k, v, out, lse, g, num_heads):
+    return tuple(torch.empty_like(t) for t in (q, k, v))
+
+
+def _attention_setup(ctx, inputs, output):
+    q, k, v, num_heads, want_lse = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.num_heads = num_heads
+    ctx.want_lse = want_lse
+
+
+def _attention_grad(ctx, g, _glse):
+    if not ctx.want_lse:
+        raise RuntimeError("missm::attention was recorded without its "
+                           "log-sum-exp (want_lse=False); call it through "
+                           "kernels.attention.attention")
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = torch.ops.missm.attention_bwd(q, k, v, out, lse, g,
+                                               ctx.num_heads)
+    return dq, dk, dv, None, None
+
+
+_attention_op.register_autograd(_attention_grad,
+                                setup_context=_attention_setup)
+
+
+@torch.library.custom_op(
+    "missm::causal_attention", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? kbias, int num_heads) "
+           "-> Tensor")
+def _causal_attention_op(q, k, v, kbias, num_heads):
+    return attention_plain(q, k, v, num_heads, causal=True, kbias=kbias)
+
+
+@_causal_attention_op.register_kernel("cuda")
+def _(q, k, v, kbias, num_heads):
     out, _ = _launch(q, k, v, kbias, num_heads, causal=True)
     LAUNCHES["causal_attention"] += 1
     return out
 
 
-def short_attention(q, k, v, num_heads: int):
-    """Attention within each instance of q, k, v [M, T, H*hd], T <= 32;
-    K2 mode c forward, K4 block-diagonal backward. Only a recorded call
-    keeps q, k and v for the backward."""
-    if q.device.type == "cpu":
-        return short_attention_plain(q, k, v, num_heads)
-    return _ShortAttention.apply(q, k, v, num_heads, _recorded(q, k, v))
+@_causal_attention_op.register_fake
+def _(q, k, v, kbias, num_heads):
+    return torch.empty_like(q)
 
 
-class _Attention(torch.autograd.Function):
-    """The forward kernel (writing the per-row log-sum-exp when `want_lse`),
-    the backward kernel; both counted under the call's route."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, num_heads, want_lse):
-        out, lse = _launch(q, k, v, None, num_heads, causal=False,
-                           want_lse=want_lse)
-        ctx.route = attention_route(q.shape[1], num_heads,
-                                    q.shape[2] // num_heads)
-        LAUNCHES[ctx.route] += 1
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.num_heads = num_heads
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _launch_bwd(q, k, v, out, lse, g.contiguous(),
-                                 ctx.num_heads)
-        LAUNCHES[ctx.route + "_bwd"] += 1
-        return dq, dk, dv, None, None
+def _causal_setup(ctx, inputs, output):
+    q, k, v, kbias, num_heads = inputs
+    ctx.save_for_backward(q, k, v, kbias)
+    ctx.num_heads = num_heads
 
 
-class _CausalAttention(torch.autograd.Function):
-    """K2(a) forward; the backward recomputes P in plain PyTorch."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, kbias, num_heads):
-        out, _ = _launch(q, k, v, kbias, num_heads, causal=True)
-        LAUNCHES["causal_attention"] += 1
-        ctx.save_for_backward(q, k, v, kbias)
-        ctx.num_heads = num_heads
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, kbias = ctx.saved_tensors
-        dq, dk, dv, dkb = causal_attention_bwd_plain(
-            q, k, v, kbias if ctx.needs_input_grad[3] else None,
-            g.contiguous(), ctx.num_heads)
-        return dq, dk, dv, dkb, None
+def _causal_grad(ctx, g):
+    """The JAX package's einsum backward (`_fca_bwd`), in plain PyTorch. The
+    key bias masks the scores whether or not it takes a gradient."""
+    q, k, v, kbias = ctx.saved_tensors
+    dq, dk, dv, dkb = causal_attention_bwd_plain(q, k, v, kbias,
+                                                 g.contiguous(),
+                                                 ctx.num_heads)
+    return dq, dk, dv, dkb if ctx.needs_input_grad[3] else None, None
 
 
-class _ShortAttention(torch.autograd.Function):
-    """The K2(c) forward kernel, the K4 block-diagonal backward kernel."""
+_causal_attention_op.register_autograd(_causal_grad,
+                                       setup_context=_causal_setup)
 
-    @staticmethod
-    def forward(ctx, q, k, v, num_heads, recorded):
-        out = _launch_short(q, k, v, num_heads)
-        LAUNCHES["short_attention"] += 1
-        if recorded:
-            ctx.save_for_backward(q, k, v)
-        ctx.num_heads = num_heads
-        return out
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = _launch_short_bwd(q, k, v, g.contiguous(), ctx.num_heads)
-        LAUNCHES["short_attention_bwd"] += 1
-        return dq, dk, dv, None, None
+@torch.library.custom_op(
+    "missm::short_attention", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, int num_heads) -> Tensor")
+def _short_attention_op(q, k, v, num_heads):
+    return short_attention_plain(q, k, v, num_heads)
+
+
+@_short_attention_op.register_kernel("cuda")
+def _(q, k, v, num_heads):
+    out = _launch_short(q, k, v, num_heads)
+    LAUNCHES["short_attention"] += 1
+    return out
+
+
+@_short_attention_op.register_fake
+def _(q, k, v, num_heads):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op(
+    "missm::short_attention_bwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor g, int num_heads) "
+           "-> (Tensor, Tensor, Tensor)")
+def _short_attention_bwd_op(q, k, v, g, num_heads):
+    return tuple(short_attention_bwd_plain(q, k, v, g, num_heads))
+
+
+@_short_attention_bwd_op.register_kernel("cuda")
+def _(q, k, v, g, num_heads):
+    grads = _launch_short_bwd(q, k, v, g.contiguous(), num_heads)
+    LAUNCHES["short_attention_bwd"] += 1
+    return grads
+
+
+@_short_attention_bwd_op.register_fake
+def _(q, k, v, g, num_heads):
+    return tuple(torch.empty_like(t) for t in (q, k, v))
+
+
+def _short_setup(ctx, inputs, output):
+    q, k, v, num_heads = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.num_heads = num_heads
+
+
+def _short_grad(ctx, g):
+    q, k, v = ctx.saved_tensors
+    dq, dk, dv = torch.ops.missm.short_attention_bwd(q, k, v, g,
+                                                     ctx.num_heads)
+    return dq, dk, dv, None
+
+
+_short_attention_op.register_autograd(_short_grad, setup_context=_short_setup)
 
 
 # ---------------------------------------------------------------------------

@@ -18,10 +18,11 @@ each row tile's statistics once; `plan` says what each bf16 launch computes. The
 db, dgamma, dbeta only where autograd asks for them.
 
 `FUSE_LN2_FC1` is the JAX package's switch, off by default and read at call
-time by models/tower.py's block; `ln_linear_available` is its shape rule. On
-a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
-launches the kernel or raises, and each launch adds one to
-LAUNCHES["ln_linear"]. The backward is the same code on both.
+time by models/tower.py's block; `ln_linear_available` is its shape rule. The
+wrapper calls the custom op `missm::ln_linear`: on a CPU tensor it computes
+the plain version; on a CUDA tensor it launches the kernel or raises, and
+each launch adds one to LAUNCHES["ln_linear"]. The backward is the same
+code on both.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ import math
 
 import torch
 
-from ..ops.basic import matmul_f32
+from ..ops.basic import matmul_f32, named
 from . import build
 from .launches import LAUNCHES
 
@@ -90,58 +91,78 @@ def ln_linear_plain(x, ln_params, lin_params, eps: float = 1e-5):
 # ---------------------------------------------------------------------------
 
 
-def ln_linear(x, ln_params, lin_params, eps: float = 1e-5):
+def ln_linear(x, ln_params, lin_params, eps: float = 1e-5, *, name=None):
     """y = LN(x; ln_params) @ lin_params['w'] (+ lin_params['b']), x [..., D]
-    -> [..., F], in x's type: the kernel forward on CUDA, the plain version
-    on the CPU, and the plain backward on both. No LoRA (see
-    ln_linear_available)."""
+    -> [..., F], in x's type, through `missm::ln_linear`: the kernel
+    forward on CUDA, the plain version on the CPU, and the plain backward on
+    both. No LoRA (see ln_linear_available). `name` tags the op's output
+    for the remat policies (ops/basic.py::named)."""
     D = x.shape[-1]
     w = lin_params["w"]
-    y = _LnLinear.apply(x.reshape(-1, D), ln_params["scale"],
-                        ln_params["bias"], w, lin_params.get("b"), eps)
+    with named(name):
+        y = torch.ops.missm.ln_linear(x.reshape(-1, D), ln_params["scale"],
+                                      ln_params["bias"], w,
+                                      lin_params.get("b"), eps)
     return y.reshape(*x.shape[:-1], w.shape[1])
 
 
-class _LnLinear(torch.autograd.Function):
-    """K5 forward (or its plain version on the CPU) on x [M, D]; the
-    backward of missm_tpu/kernels/ln_linear.py::_ln_linear_bwd."""
+@torch.library.custom_op(
+    "missm::ln_linear", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor gamma, Tensor beta, Tensor w, Tensor? b, "
+           "float eps) -> Tensor")
+def _ln_linear_op(x, gamma, beta, w, b, eps):
+    """K5's function on x [M, D]: its plain version on the CPU."""
+    return _plain(x, gamma, beta, w, b, eps)
 
-    @staticmethod
-    def forward(ctx, x, gamma, beta, w, b, eps):
-        if x.device.type == "cpu":
-            y = _plain(x, gamma, beta, w, b, eps)
-        else:
-            y = _launch(x, gamma, beta, w, b, eps)
-            LAUNCHES["ln_linear"] += 1
-        ctx.save_for_backward(x, gamma, beta, w)
-        ctx.eps = eps
-        ctx.b_dtype = None if b is None else b.dtype
-        return y
 
-    @staticmethod
-    def backward(ctx, dy):
-        x, gamma, beta, w = ctx.saved_tensors
-        need_x, need_gamma, need_beta, need_w, need_b, _ = ctx.needs_input_grad
-        xhat, rstd = _normalise(x, ctx.eps)
-        dyc = dy.to(x.dtype)
-        dx = dgamma = dbeta = dw = db = None
-        if need_x or need_gamma or need_beta:
-            dln = matmul_f32(dyc, w.t())                       # [M, D] f32
-        if need_w:
-            h = (xhat * gamma.float() + beta.float()).to(x.dtype)
-            dw = matmul_f32(h.t(), dyc).to(w.dtype)
-        if need_b:
-            db = dy.float().sum(0).to(ctx.b_dtype)
-        if need_gamma:
-            dgamma = (dln * xhat).sum(0).to(gamma.dtype)
-        if need_beta:
-            dbeta = dln.sum(0).to(beta.dtype)
-        if need_x:
-            t = dln * gamma.float()
-            dx = rstd * (t - t.mean(-1, keepdim=True)
-                         - xhat * (t * xhat).mean(-1, keepdim=True))
-            dx = dx.to(x.dtype)
-        return dx, dgamma, dbeta, dw, db, None
+@_ln_linear_op.register_kernel("cuda")
+def _(x, gamma, beta, w, b, eps):
+    y = _launch(x, gamma, beta, w, b, eps)
+    LAUNCHES["ln_linear"] += 1
+    return y
+
+
+@_ln_linear_op.register_fake
+def _(x, gamma, beta, w, b, eps):
+    return x.new_empty((x.shape[0], w.shape[1]))
+
+
+def _ln_linear_setup(ctx, inputs, output):
+    x, gamma, beta, w, b, eps = inputs
+    ctx.save_for_backward(x, gamma, beta, w)
+    ctx.eps = eps
+    ctx.b_dtype = None if b is None else b.dtype
+
+
+def _ln_linear_grad(ctx, dy):
+    """missm_tpu/kernels/ln_linear.py::_ln_linear_bwd: dln = dy W^T in f32,
+    then the LayerNorm backward; each gradient only where autograd asks."""
+    x, gamma, beta, w = ctx.saved_tensors
+    need_x, need_gamma, need_beta, need_w, need_b, _ = ctx.needs_input_grad
+    xhat, rstd = _normalise(x, ctx.eps)
+    dyc = dy.to(x.dtype)
+    dx = dgamma = dbeta = dw = db = None
+    if need_x or need_gamma or need_beta:
+        dln = matmul_f32(dyc, w.t())                       # [M, D] f32
+    if need_w:
+        h = (xhat * gamma.float() + beta.float()).to(x.dtype)
+        dw = matmul_f32(h.t(), dyc).to(w.dtype)
+    if need_b:
+        db = dy.float().sum(0).to(ctx.b_dtype)
+    if need_gamma:
+        dgamma = (dln * xhat).sum(0).to(gamma.dtype)
+    if need_beta:
+        dbeta = dln.sum(0).to(beta.dtype)
+    if need_x:
+        t = dln * gamma.float()
+        dx = rstd * (t - t.mean(-1, keepdim=True)
+                     - xhat * (t * xhat).mean(-1, keepdim=True))
+        dx = dx.to(x.dtype)
+    return dx, dgamma, dbeta, dw, db, None
+
+
+_ln_linear_op.register_autograd(_ln_linear_grad,
+                                setup_context=_ln_linear_setup)
 
 
 # ---------------------------------------------------------------------------

@@ -50,8 +50,9 @@ def _remat_for(remat, modality):
 
 
 def encode(params, tower_cfgs: Mapping[str, TowerConfig], inputs: Mapping, *,
-           use_temp: bool = True, train: bool = False,
-           remat=False) -> Dict[str, torch.Tensor]:
+           use_temp: bool = True, train: bool = False, remat=False,
+           generator: torch.Generator | None = None
+           ) -> Dict[str, torch.Tensor]:
     """inputs: {'language': input_ids [B, L] or {'input_ids', 'attention_mask'}}
     and/or {modality: pixel_values [B, C, H, W] or video [B, C, T, H, W]}.
 
@@ -59,7 +60,8 @@ def encode(params, tower_cfgs: Mapping[str, TowerConfig], inputs: Mapping, *,
     non-language ones times exp(logit_scale) when `use_temp`. Missing-modality
     masking happens after the encoder, in the fusion head. `remat` is one
     policy or a per-tower spec, resolved by _remat_for for each tower and for
-    "language" (models/tower.py::_block_forward)."""
+    "language" (models/tower.py::_block_forward). `generator` feeds the
+    vision towers' patch dropout in train mode (the only encoder draw)."""
     out = {}
     any_cfg = next(iter(tower_cfgs.values()))
     for name, value in inputs.items():
@@ -78,7 +80,8 @@ def encode(params, tower_cfgs: Mapping[str, TowerConfig], inputs: Mapping, *,
                                      tower_cfgs[name].vision, value,
                                      train=train,
                                      remat=_remat_for(remat, name),
-                                     projection=params[name]["proj"])
+                                     projection=params[name]["proj"],
+                                     generator=generator)
             pooled = l2_normalize(pooled)
             if use_temp:
                 pooled = pooled * torch.exp(params[name]["logit_scale"])

@@ -28,8 +28,9 @@ class ModelConfig:
     remat: one policy for every tower, or a per-tower spec (a Mapping or a
     tuple of (modality, policy) pairs, with an optional "default"; a tower
     it does not name gets True), as encoder._remat_for resolves it. True
-    recomputes every transformer block of the tower in the backward; the
-    JAX package's named policies raise NotImplementedError."""
+    recomputes every transformer block of the tower in the backward; a
+    policy name (models/tower.py::REMAT_POLICIES) keeps the values it
+    names."""
     towers: Tuple[Tuple[str, TowerConfig], ...]
     fusion: FusionConfig
     use_temp: bool = True
@@ -93,11 +94,12 @@ def init_model_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
             "fusion": init_fusion(gen, cfg.fusion)}
 
 
-def _encode(params, cfg: ModelConfig, data, device, train):
+def _encode(params, cfg: ModelConfig, data, device, train, generator=None):
     dt = getattr(torch, cfg.compute_dtype)
     data = _prepare_inputs(data, dt, resolve_device(device))
     embeds = encode(cast_tree(params["encoder"], dt), cfg.tower_dict, data,
-                    use_temp=cfg.use_temp, train=train, remat=cfg.remat)
+                    use_temp=cfg.use_temp, train=train, remat=cfg.remat,
+                    generator=generator)
     return {k: v.float() for k, v in embeds.items()}
 
 
@@ -108,11 +110,12 @@ def model_forward(params, cfg: ModelConfig, data: Mapping, missing_index, *,
     {modality: pixels}; returns (logits [B, output_dims] f32, aux).
 
     With train=True the graph is kept for a backward pass (the caller must
-    not be in inference mode). The JAX package splits its rng into an
-    encoder part and a fusion part; the only randomness on the ported path
-    is the fusion head's dropout, so `generator` goes to the fusion head
-    alone (it must lie on `device`)."""
-    embeds = _encode(params, cfg, data, device, train)
+    not be in inference mode). `generator` (on `device`) feeds both draws
+    of a train-mode call: the towers' patch dropout, where a config has it,
+    then the fusion head's dropout. The JAX package splits its rng into an
+    encoder part and a fusion part; one torch.Generator serves both in
+    turn."""
+    embeds = _encode(params, cfg, data, device, train, generator)
     missing_index = torch.as_tensor(missing_index, device=resolve_device(device))
     return fusion_forward(params["fusion"], cfg.fusion, embeds, missing_index,
                           train=train, generator=generator)

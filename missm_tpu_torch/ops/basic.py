@@ -3,16 +3,118 @@
 Params are dicts of tensors; linear weights are (in, out) as in the JAX
 package. Matmuls accumulate in f32 and round once to the input type. A
 LoRA'd `linear` carries the JAX package's exact-rank gradient (_LoraLinear).
+
+`named` is the port's `checkpoint_name`: the ops run inside it produce the
+named value, and a block checkpointed under a named remat policy
+(models/tower.py) keeps the outputs of those ops by the name
+(`keep_contexts`).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
+
+_NAME = None  # the name of the value the ops now running produce
+_KEEP = None  # the _Keeper of the block running under a named policy
 
 
-def quick_gelu(x):
-    """CLIP's activation: x * sigmoid(1.702 x)."""
-    return x * torch.sigmoid(1.702 * x)
+@contextlib.contextmanager
+def named(name: str | None):
+    """Name the value that the ops run inside produce (the JAX package's
+    `checkpoint_name`): "qkv", "attn_kernel_out", "mlp_wide" and so on. A
+    region holds only the ops that make the value (their views aside), so
+    that a policy keeping the name keeps that value and nothing else."""
+    global _NAME
+    outer, _NAME = _NAME, name
+    keeper = _KEEP if _KEEP is not None and _KEEP.enters(name) else None
+    try:
+        if keeper is None:
+            yield
+        else:
+            with keeper:
+                yield
+    finally:
+        _NAME = outer
+
+
+def _detached(out):
+    if isinstance(out, tuple):
+        return tuple(_detached(t) for t in out)
+    return out.detach() if isinstance(out, torch.Tensor) else out
+
+
+class _Keeper(TorchDispatchMode):
+    """What one checkpointed block keeps under a named remat policy. In the
+    forward each op it sees runs and its output is kept; in the backward's
+    recompute the same op, met in the same order, gives the kept output
+    instead of running again, so autograd still records it (saving its
+    inputs for the backward) but nothing is computed twice. It sees the ops
+    of the regions (`named`) the policy keeps, where `named` enters it; with
+    `most`, the ops of the whole block but those of the `names` regions.
+    Views are never kept (one costs nothing to make again, and one of any
+    other tensor would keep its base alive), nor the detaches autograd adds
+    in one pass and not the other."""
+
+    def __init__(self, names, most: bool):
+        super().__init__()
+        self.names, self.most = names, most
+        self.kept, self.replay, self.next = [], False, 0
+
+    def keeps(self, name) -> bool:
+        return (name not in self.names) if self.most else (name in self.names)
+
+    def enters(self, name) -> bool:
+        """Whether `named(name)` enters this mode (with `most` it is on
+        for the whole block already)."""
+        return not self.most and name in self.names
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if (func.is_view or func is torch.ops.aten.detach.default
+                or not self.keeps(_NAME)):
+            return func(*args, **kwargs)
+        if self.replay:
+            self.next += 1
+            return _detached(self.kept[self.next - 1])
+        out = func(*args, **kwargs)
+        self.kept.append(_detached(out))
+        return out
+
+
+@contextlib.contextmanager
+def _keeping(keeper: _Keeper, replay: bool):
+    global _KEEP
+    keeper.replay, keeper.next = replay, 0
+    outer, _KEEP = _KEEP, keeper
+    try:
+        if keeper.most:
+            with keeper:
+                yield
+        else:
+            yield
+    finally:
+        _KEEP = outer
+
+
+def keep_contexts(names, most: bool = False):
+    """torch.utils.checkpoint's context_fn for a block that keeps the values
+    `names` names (with `most`: every value but those): the forward's
+    context, which keeps them, and the recompute's, which gives them back."""
+    keeper = _Keeper(names, most)
+    return _keeping(keeper, False), _keeping(keeper, True)
+
+
+def quick_gelu(x, *, name: str | None = None):
+    """CLIP's activation: x * sigmoid(1.702 x). The sigmoid is named
+    "act_sig" (missm_tpu/ops/basic.py::quick_gelu), the result `name`."""
+    z = 1.702 * x
+    with named("act_sig"):
+        s = torch.sigmoid(z)
+    with named(name):
+        return x * s
 
 
 _ACTS = {"quick_gelu": quick_gelu}  # every ported tower's hidden_act
@@ -49,17 +151,18 @@ class _LoraLinear(torch.autograd.Function):
     which eager PyTorch would compute."""
 
     @staticmethod
-    def forward(ctx, x, w, a, b, bias, scaling):
+    def forward(ctx, x, w, a, b, bias, scaling, name):
         ctx.save_for_backward(x, w, a, b)
         ctx.scaling = scaling
         ctx.bias_dtype = None if bias is None else bias.dtype
-        return F.linear(x, _fold_lora(w, a, b, scaling, x.dtype).t(), bias)
+        return _product(x, _fold_lora(w, a, b, scaling, x.dtype), bias,
+                        name)
 
     @staticmethod
     def backward(ctx, g):
         x, w, a, b = ctx.saved_tensors
         s = ctx.scaling
-        need_x, need_w, need_a, need_b, need_bias, _ = ctx.needs_input_grad
+        need_x, need_w, need_a, need_b, need_bias = ctx.needs_input_grad[:5]
         gc = g.to(x.dtype)
         x2 = x.reshape(-1, x.shape[-1])
         g2 = gc.reshape(-1, gc.shape[-1])
@@ -76,22 +179,33 @@ class _LoraLinear(torch.autograd.Function):
             db = ((xa.to(g2.dtype).t() @ g2).float() * s).to(b.dtype)
         if need_bias:
             dbias = g2.float().sum(0).to(ctx.bias_dtype)
-        return dx, dw, da, db, dbias, None
+        return dx, dw, da, db, dbias, None, None
 
 
-def linear(params, x, *, lora_scaling: float | None = None):
+def linear(params, x, *, lora_scaling: float | None = None,
+           name: str | None = None):
     """y = x @ w (+ b) with the optional folded LoRA delta.
 
     `params['w']`: (in, out); optional `params['b']`: (out,); optional
     `params['lora_a']` (in, r) and `params['lora_b']` (r, out), used when
     `lora_scaling` is given. The bias is added inside the f32-accumulating
     matmul before the single rounding to x's type. LoRA'd projections take
-    _LoraLinear's exact-rank gradient."""
+    _LoraLinear's exact-rank gradient. `name` names the product (`named`)."""
     if lora_scaling is not None and "lora_a" in params:
         return _LoraLinear.apply(x, params["w"], params["lora_a"],
                                  params["lora_b"], params.get("b"),
-                                 lora_scaling)
-    return F.linear(x, params["w"].t(), params.get("b"))
+                                 lora_scaling, name)
+    return _product(x, params["w"], params.get("b"), name)
+
+
+def _product(x, w, b, name):
+    """x [..., in] @ w (in, out) (+ b) as the one addmm (mm without a bias)
+    that F.linear runs on the rows, the only op of the `named` region (the
+    views stay outside it)."""
+    rows = x.reshape(-1, x.shape[-1])
+    with named(name):
+        y = torch.mm(rows, w) if b is None else torch.addmm(b, rows, w)
+    return y.view(*x.shape[:-1], w.shape[1])
 
 
 def matmul_f32(a, b):

@@ -7,9 +7,10 @@ forward (inference mode) and its forward and backward (the gradient with
 respect to the stack's input, as the JAX probe's loss sum(h)): CUDA events
 around one stack, the median of `runs` stacks after two warm-up stacks, the
 arms in turns (off, on, on, off). Each fused stack must launch K5 once per
-block. The JAX probe's backward arm runs under the named remat policy
-save_attn_mlp_qkv; the named policies are not ported (ROADMAP item 6b), so
-this one keeps every activation (no remat).
+block. The backward arm runs under the JAX probe's named remat policy
+save_attn_mlp_qkv (models/tower.py::REMAT_POLICIES): each block keeps its
+input, attn_out, mlp_wide (K5's output in the fused arm) and q/k/v, and
+recomputes the rest in the backward.
 
     python -m missm_tpu_torch.probes.ln_linear_probe [--runs N]
 
@@ -33,6 +34,7 @@ from ..ops.basic import get_activation
 from .timing import event_ms
 
 B = 64
+REMAT = "save_attn_mlp_qkv"  # the JAX probe's train arm
 
 
 def config():
@@ -58,7 +60,7 @@ def run(device="cuda", runs=5, seed=0) -> dict:
 
     def fwdbwd():
         x = x0.detach().requires_grad_()
-        h = _encoder(blocks, x, **kw)
+        h = _encoder(blocks, x, remat=REMAT, **kw)
         return torch.autograd.grad(h.float().sum(), x)[0]
 
     times = {f"{arm}_{k}": [] for arm in ("unfused", "fused")

@@ -260,8 +260,9 @@ def test_causal_bwd_plain_matches_jax(rng, with_pad):
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_cpu_wrappers_differentiate_as_the_plain_versions(rng, causal):
-    """On CPU tensors the wrappers are the plain versions under autograd, and
-    the plain backwards equal autograd of the plain forward."""
+    """On CPU tensors the wrappers' ops compute the plain versions, their
+    gradients are the plain backwards exactly, and the plain backwards equal
+    autograd of the plain forward."""
     heads = 2
     arrays = _qkv(rng, 2, 33, heads * 16) + [_padding_bias(rng, 2, 33)]
     g = torch.from_numpy(rng.standard_normal((2, 33, 32)).astype(np.float32))
@@ -291,7 +292,7 @@ def test_cpu_wrappers_differentiate_as_the_plain_versions(rng, causal):
     else:
         bwd = kernels.attention_bwd_plain(*t[:3], g, heads)
     for x, w, b in zip(got, want, bwd):
-        torch.testing.assert_close(x, w, atol=0, rtol=0)
+        torch.testing.assert_close(x, b, atol=0, rtol=0)
         torch.testing.assert_close(b, w, atol=ATOL, rtol=RTOL)
 
 

@@ -16,6 +16,7 @@ test_preemption.py:209, and held against the JAX package's:
   other, tests/test_torch_data.py).
 """
 import argparse
+import json
 import os
 import re
 import sys
@@ -135,8 +136,20 @@ def test_predict_cli(workspace):
     assert len(df) == len(out) == 10
     assert set(df.columns) == {"index", "label", "pred", "confidence"}
     assert (df["confidence"] > 0).all() and df["pred"].between(0, 2).all()
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        predict_main(argv + ["--artifact", "model.stablehlo"])
+    # cli.export, then cli.predict --artifact: the same predictions, and
+    # confidences bit for bit (the artifact runs the Predictor's function)
+    from missm_tpu_torch.cli.export import main as export_main
+
+    export_main(argv + ["--split", "test", "--output", "artifact"])
+    manifest = json.load(open("artifact/manifest.json"))
+    assert manifest["format"] == "torch.export/pt2"
+    assert manifest["batch_size"] == 8 and manifest["device"] == "cpu"
+    assert manifest["op_namespace"] == "missm"
+    assert os.path.getsize("artifact/model.pt2") == manifest["artifact_bytes"]
+    served = predict_main(argv + ["--split", "test", "--output", "art.csv",
+                                  "--artifact", "artifact"])
+    pd.testing.assert_frame_equal(served, out)
+    pd.testing.assert_frame_equal(pd.read_csv("art.csv"), df)
 
 
 def test_cli_train_from_converted_checkpoint(workspace):
@@ -296,10 +309,12 @@ UNPORTED = [
     (["--pipe_schedule", "1f1b"], "queue 1 item 9"),
     (["--distributed", "true"], "queue 1 item 9"),
     (["--distributed", "10.0.0.1:1234,2,0"], "queue 1 item 9"),
-    (["--remat", "save_attn_mlp"], "queue 1 item 8"),
-    (["--remat", "image=save_most,default=true"], "queue 1 item 8"),
     (["--uint8_upload", "true"], "no quantized host upload"),
 ]
+# the named remat policies: each parses, in one value or a per-tower spec
+POLICIES = [(["--remat", "save_attn_mlp"], "save_attn_mlp"),
+            (["--remat", "image=save_most,default=true"],
+             (("image", "save_most"), ("default", True)))]
 
 
 @pytest.mark.parametrize("which", ["train", "test"])
@@ -311,6 +326,15 @@ def test_unported_flags_raise(which, flags, item, capsys):
         parse(flags + ["--modality_types", "language", "image"])
     assert e.value.code == 2
     assert item in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("which", ["train", "test"])
+@pytest.mark.parametrize("flags,remat", POLICIES,
+                         ids=[" ".join(f) for f, _ in POLICIES])
+def test_remat_policies_parse(which, flags, remat):
+    parse = train_args if which == "train" else test_args
+    args = parse(flags + ["--modality_types", "language", "image"])
+    assert args.remat == remat
 
 
 def test_ported_flags_parse():
@@ -365,9 +389,7 @@ def test_yaml_values_route_through_flag_parsers(tmp_path, capsys):
 
     policy = tmp_path / "policy.yaml"
     policy.write_text("remat: save_attn_mlp\n")
-    with pytest.raises(SystemExit):
-        train_args(["--config", str(policy)])
-    assert "queue 1 item 8" in capsys.readouterr().err
+    assert train_args(["--config", str(policy)]).remat == "save_attn_mlp"
 
     badkey = tmp_path / "badkey.yaml"
     badkey.write_text("remat: adio=true\n"

@@ -153,14 +153,26 @@ def test_safetensors_checkpoint_converts_like_the_bin(tmp_path):
         _load_torch_state_dict(str(tmp_path))
 
 
-def test_tube3d_target_raises():
-    import dataclasses
-
-    cfg = tiny_tower("video")
-    cfg = dataclasses.replace(cfg, vision=dataclasses.replace(
-        cfg.vision, use_tube3d=True, tube_size=2))
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tconvert.convert_tower_state_dict(_sd("video"), cfg, device="cpu")
+def test_tube3d_target_inflates_the_2d_checkpoint():
+    """A Conv2d checkpoint into the tube-3D embedding (tube 2): the 2-D
+    weights in tube slot 0, the next slot zero, the CLS token repeated a
+    tube, exactly as JAX's converter inflates it
+    (missm_tpu/compat/convert.py:144-158)."""
+    sd = _sd("video")
+    want = from_jax(jax.tree_util.tree_map(
+        np.asarray, jconvert.convert_tower_state_dict(
+            sd, jax_tiny_tower("video", use_tube3d=True, tube_size=2))),
+        device="cpu")
+    got = tconvert.convert_tower_state_dict(
+        sd, tiny_tower("video", use_tube3d=True, tube_size=2), device="cpu")
+    _assert_same_tree(got, want)
+    w = got["vision"]["patch_embedding"]["w"].reshape(3, 2, 16, 16, -1)
+    assert torch.equal(w[:, 0].reshape(3 * 16 * 16, -1),
+                       tconvert.convert_tower_state_dict(
+                           sd, tiny_tower("video"), device="cpu")
+                       ["vision"]["patch_embedding"]["w"])
+    assert not w[:, 1].any()
+    assert got["vision"]["class_embedding"].shape == (2, 32)
 
 
 @pytest.mark.parametrize("modality", MODS)

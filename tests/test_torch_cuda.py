@@ -1389,3 +1389,149 @@ def test_media_loaders_on_the_card_match_the_cpu(cuda, tmp_path):
         tol = (dict(atol=2e-3, rtol=1e-4) if m == "audio"
                else dict(atol=2e-4, rtol=1e-4))
         torch.testing.assert_close(got.cpu(), want, **tol)
+
+
+# ---------------------------------------------------------------------------
+# The custom ops, the named remat policies and the serving artifact on the
+# card
+# ---------------------------------------------------------------------------
+
+
+def _op_args(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+
+    def t(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda).to(dtype)
+
+    q, k, v, g = t(2, 257, 128), t(2, 257, 128), t(2, 257, 128), t(2, 257, 128)
+    out, lse = kernels._launch(q, k, v, None, 2, causal=False, want_lse=True)
+    sq, sk, sv, sg = t(37, 8, 128), t(37, 8, 128), t(37, 8, 128), t(37, 8, 128)
+    x, w = t(128, 256), t(256, 512)
+    gamma, beta, b = t(256), t(256), t(512)
+    kb = _inputs(gen, 2, 257, 2, 64, dtype, True)[3]
+    return {
+        "attention": ((q, k, v, 2, True), "attention"),
+        "attention_bwd": ((q, k, v, out, lse, g, 2), "attention_bwd"),
+        "causal_attention": ((q, k, v, kb, 2), "causal_attention"),
+        "short_attention": ((sq, sk, sv, 2), "short_attention"),
+        "short_attention_bwd": ((sq, sk, sv, sg, 2), "short_attention_bwd"),
+        "ln_linear": ((x, gamma, beta, w, b, 1e-5), "ln_linear")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["attention", "attention_bwd",
+                                "causal_attention", "short_attention",
+                                "short_attention_bwd", "ln_linear"])
+def test_custom_op_launches_its_kernel_once(cuda, dtype, op):
+    """A CUDA call of each `missm` op launches its hand kernel once, counted
+    under the kernel's name, and its fake gives the real output's shapes
+    and types."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    args, counter = _op_args(cuda, dtype)[op]
+    fn = getattr(torch.ops.missm, op).default
+    kernels.reset_launches()
+    real = fn(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == _counts(**{counter: 1})
+    mode = FakeTensorMode()
+    fakes = [mode.from_tensor(a) if torch.is_tensor(a) else a for a in args]
+    with mode:
+        fake = fn(*fakes)
+    real = real if isinstance(real, tuple) else (real,)
+    fake = fake if isinstance(fake, tuple) else (fake,)
+    assert [(f.shape, f.dtype, f.device.type) for f in fake] == [
+        (r.shape, r.dtype, r.device.type) for r in real]
+
+
+def test_custom_op_raises_on_what_its_kernel_does_not_take(cuda):
+    """No fall-back to the plain version: a head dim the kernels were not
+    built for raises."""
+    q = torch.randn(1, 9, 2 * 24, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        torch.ops.missm.attention(q, q, q, 2, False)
+
+
+@pytest.mark.parametrize("policy", [True, "save_attn_mlp_qkv",
+                                    "save_attn_mlp_qkv_kern", "save_most"])
+def test_remat_policy_launches_on_the_card(cuda, policy):
+    """The tiny image + text model's f32 gradients under a policy equal no
+    remat's; the forward kernels run again in the backward exactly where
+    the policy does not keep their output."""
+    from missm_tpu_torch.train.step import compute_loss, partition_trainable
+
+    cfg = finetune.ModelConfig(
+        towers=(("image", tiny_tower("image", hidden_size=128, num_heads=2,
+                                     intermediate_size=256)),),
+        fusion=FusionConfig(fusion_type="sum",
+                            modality_types=("language", "image"),
+                            output_dims=3, feature_dims=24, fusion_dim=16,
+                            dropout_prob=0.0))
+    params = finetune.init_model_params(cfg, seed=0, device=cuda)
+    partition_trainable(params, cfg)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    data = {"language": torch.randint(1, 97, (4, 16), generator=gen,
+                                      device=cuda),
+            "image": torch.randn(4, 3, 32, 32, generator=gen, device=cuda)}
+    labels = torch.tensor([0, 1, 2, 0], device=cuda)
+    codes = torch.tensor([0, 1, 4, 0], device=cuda)
+
+    def grads(remat):
+        for t in leaves(params):
+            t.grad = None
+        kernels.reset_launches()
+        loss, _ = compute_loss(params, None, _with_remat(cfg, remat), data,
+                               labels, codes, None, device=cuda)
+        loss.backward()
+        torch.cuda.synchronize()
+        return ([t.grad.clone() for t in leaves(params) if t.grad is not None],
+                dict(kernels.LAUNCHES))
+
+    ref, base = grads(False)
+    got, launched = grads(policy)
+    replay = policy is True or policy == "save_attn_mlp_qkv"
+    want = dict(base, **{k: base[k] * (2 if replay else 1)
+                         for k in ("attention_unsplit", "causal_attention")})
+    assert launched == want
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
+
+
+def _with_remat(cfg, remat):
+    import dataclasses
+
+    return dataclasses.replace(cfg, remat=remat)
+
+
+def test_artifact_on_the_card_equals_the_predictor(cuda, tmp_path):
+    """The tiny model exported on the card: preds equal the Predictor's,
+    probs within 1e-6, and its kernels launch from the loaded program."""
+    from missm_tpu_torch.eval.artifact import export_artifact, load_artifact
+    from missm_tpu_torch.eval.predictor import Predictor
+
+    cfg = finetune.ModelConfig(
+        towers=(("image", tiny_tower("image")),),
+        fusion=FusionConfig(fusion_type="sum",
+                            modality_types=("language", "image"),
+                            output_dims=3, feature_dims=24, fusion_dim=16))
+    params = finetune.init_model_params(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(1, 97, (4, 16)).astype(np.int32)
+    ids[:, 9] = 98
+    data = {"language": {"input_ids": ids, "attention_mask":
+                         (np.arange(16)[None] <= 9).repeat(4, 0)
+                         .astype(np.int32)},
+            "image": rng.integers(0, 256, (4, 3, 32, 32)).astype(np.uint8)}
+    export_artifact(params, cfg, data, str(tmp_path))
+    art = load_artifact(str(tmp_path))
+    codes = np.array([0, 1, 4, 0], np.int32)
+    kernels.reset_launches()
+    preds, probs = art.predict_arrays(data, codes)
+    torch.cuda.synchronize()
+    layers = cfg.towers[0][1].vision.num_layers
+    assert kernels.LAUNCHES == _counts(attention_unsplit=layers,
+                                       causal_attention=layers)
+    want_preds, want_probs = Predictor(params, cfg, batch_size=4,
+                                       device=cuda).predict_arrays(data, codes)
+    np.testing.assert_array_equal(preds, want_preds)
+    np.testing.assert_allclose(probs, want_probs, atol=1e-6, rtol=0)

@@ -296,13 +296,17 @@ def test_teacher_forward_records_nothing(trees, batch, monkeypatch):
     from missm_tpu_torch.kernels import attention as K
 
     recorded = []
-    plain = K.attention_plain
 
-    def spy(q, k, v, *a, **kw):
-        recorded.append(torch.is_grad_enabled() and q.requires_grad)
-        return plain(q, k, v, *a, **kw)
+    def spy(wrapper):
+        def call(q, k, v, *a, **kw):
+            recorded.append(torch.is_grad_enabled() and q.requires_grad)
+            return wrapper(q, k, v, *a, **kw)
+        return call
 
-    monkeypatch.setattr(K, "attention_plain", spy)
+    # the wrappers, where autograd still sees the call (inside the custom
+    # op's kernel it never does)
+    monkeypatch.setattr(K, "attention", spy(K.attention))
+    monkeypatch.setattr(K, "causal_attention", spy(K.causal_attention))
     _, tcfg = _configs("MTD_stu")
     tree, teacher = trees["MTD_stu"]
     params = from_jax(tree, device="cpu")

@@ -2,8 +2,9 @@
 package and builds nothing, needs neither pandas nor PIL (nor PyYAML,
 safetensors or tensorboard) to import,
 chip_smoke.py imports neither JAX nor the JAX package, and its entry
-points run on the card unless the caller asks for the CPU, the media
-loaders' samples included."""
+points (export, the serving artifact's loader and cli.export among them)
+run on the card unless the caller asks for the CPU, the media loaders'
+samples included."""
 import ast
 import os
 import subprocess
@@ -13,9 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from missm_tpu_torch.cli.export import main as export_main
 from missm_tpu_torch.compat.from_jax import from_jax
 from missm_tpu_torch.core.config import tiny_tower
 from missm_tpu_torch.data.preprocess import make_media_loaders
+from missm_tpu_torch.eval.artifact import export_artifact, load_artifact
 from missm_tpu_torch.models import finetune
 from missm_tpu_torch.models.fusion import FusionConfig
 from missm_tpu_torch.ops.image_transforms import image_transform
@@ -104,8 +107,11 @@ def _cfg():
 @pytest.mark.parametrize("entry", ["init_model_params", "make_eval_step",
                                    "make_train_step", "model_forward",
                                    "from_jax", "make_media_loaders",
-                                   "image_transform", "audio_model_input"])
+                                   "image_transform", "audio_model_input",
+                                   "export_artifact", "load_artifact",
+                                   "cli.export"])
 def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch,
+                                                                tmp_path,
                                                                 entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = _cfg()
@@ -126,7 +132,17 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch,
         "audio_model_input": lambda: audio_model_input(
             np.zeros(1600, np.float32), FbankConfig(num_mel_bins=32), 48,
             (0, 0, 0), 0.0, 1.0),
+        "export_artifact": lambda: export_artifact(params, cfg, data,
+                                                   str(tmp_path / "art")),
+        "load_artifact": lambda: load_artifact(str(tmp_path / "art")),
+        "cli.export": lambda: export_main([
+            "--datasetName", "mvsa", "--csv_path", str(tmp_path / "x.csv"),
+            "--modality_types", "language", "image", "--model_scale",
+            "tiny", "--hash_tokenizer"]),
     }
+    if entry == "load_artifact":  # a CPU artifact, asked for on the card
+        export_artifact(params, cfg, data, str(tmp_path / "art"),
+                        device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         calls[entry]()
     # the same call on the CPU, asked for, runs

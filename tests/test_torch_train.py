@@ -317,21 +317,21 @@ def test_train_step_rejects_a_batch_accum_does_not_divide(tree, batch):
 
 
 def test_remat_gives_the_same_step(tree, batch):
+    """Full remat and bench.py's train policy (save_attn_mlp_qkv_kern)
+    change what the backward keeps, not the step."""
     _, tcfg = _configs()
     g0, s0 = _port_steps(tree, batch, 2)
-    g1, s1 = _port_steps(tree, batch, 2,
-                         cfg=dataclasses.replace(tcfg, remat=True))
-    for path in g0:
-        np.testing.assert_allclose(g1[path], g0[path], rtol=1e-6, atol=1e-9,
-                                   err_msg=path)
-    for (l0, p0), (l1, p1) in zip(s0, s1):
-        assert l1 == pytest.approx(l0, rel=1e-6)
-        for path in p0:
-            np.testing.assert_allclose(p1[path], p0[path], rtol=0,
-                                       atol=1e-2 * LR, err_msg=path)
-    policy = dataclasses.replace(tcfg, remat="save_attn_mlp_qkv_kern")
-    with pytest.raises(NotImplementedError):
-        _port_steps(tree, batch, 1, cfg=policy, n=1)
+    for remat in (True, "save_attn_mlp_qkv_kern"):
+        g1, s1 = _port_steps(tree, batch, 2,
+                             cfg=dataclasses.replace(tcfg, remat=remat))
+        for path in g0:
+            np.testing.assert_allclose(g1[path], g0[path], rtol=1e-6,
+                                       atol=1e-9, err_msg=path)
+        for (l0, p0), (l1, p1) in zip(s0, s1):
+            assert l1 == pytest.approx(l0, rel=1e-6)
+            for path in p0:
+                np.testing.assert_allclose(p1[path], p0[path], rtol=0,
+                                           atol=1e-2 * LR, err_msg=path)
 
 
 # ---------------------------------------------------------------------------

@@ -238,12 +238,46 @@ def test_per_tower_remat_gives_the_same_step(tree, batch, spec):
                                        atol=1e-2 * LR, err_msg=path)
 
 
-def test_named_policy_in_a_spec_still_raises(tree, batch):
-    _, tcfg = _configs()
-    cfg = dataclasses.replace(tcfg, remat=(("video", False),
-                                           ("audio", "save_attn_mlp_kern")))
-    with pytest.raises(NotImplementedError, match="save_attn_mlp_kern"):
-        _port_steps(tree, batch, cfg, n=1)
+BENCH_SPEC = (("video", "save_attn_mlp_qkv"), ("audio", "save_attn_mlp_kern"),
+              ("language", "save_attn_mlp"))  # bench.py:208-210
+
+
+def test_bench_remat_spec_step_matches_jax(tree, batch, jax_run):
+    """bench.py's train3 spec of named policies: the first gradient against
+    jax.grad of the JAX loss under the same spec, then the losses and the
+    params of two steps against the JAX package's steps (remat changes
+    what the backward keeps, not the step)."""
+    jcfg, tcfg = _configs()
+    jcfg = dataclasses.replace(jcfg, remat=BENCH_SPEC)
+    data, labels, missing = batch
+    params = jax.tree_util.tree_map(jnp.asarray, tree)
+    treedef, trainable, frozen = jstep.partition_trainable(params, jcfg)
+
+    def loss(tr):
+        p = jstep.combine_params(treedef, tr, frozen)
+        return jstep.compute_loss(
+            p, None, jcfg, jax.tree_util.tree_map(jnp.asarray, data),
+            jnp.asarray(labels), jnp.asarray(missing),
+            jax.random.PRNGKey(0))[0]
+
+    g = jax.jit(jax.grad(loss))(trainable)
+    want_grads = _flat(jax.tree_util.tree_map(np.asarray, jstep.combine_params(
+        treedef, g, [None if f is None else jnp.zeros_like(f)
+                     for f in frozen])))
+    grads, steps = _port_steps(tree, batch,
+                               dataclasses.replace(tcfg, remat=BENCH_SPEC))
+    for path, w in want_grads.items():
+        atol = GRAD_RTOL * float(np.abs(w).max()) + NOISE
+        np.testing.assert_allclose(grads[path], w, rtol=0, atol=atol,
+                                   err_msg=path)
+    for i, ((gl, gp), (wl, wp)) in enumerate(zip(steps, jax_run[1],
+                                                 strict=True)):
+        assert gl == pytest.approx(wl, rel=LOSS_RTOL)
+        for path, w in wp.items():
+            zero = float(np.abs(want_grads[path]).max()) < NOISE
+            np.testing.assert_allclose(
+                gp[path], w, rtol=0, err_msg=path,
+                atol=(i + 1) * 2 * LR if zero else PARAM_ATOL)
 
 
 def test_three_tower_labels_match_jax(tree):

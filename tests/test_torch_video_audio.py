@@ -260,12 +260,28 @@ def test_video_tower_remat_matches_no_remat_with_grads():
         torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-5)
 
 
-def test_tube3d_and_7d_input_still_raise():
+def test_tube3d_and_7d_input_run_as_jax():
+    """The tube-3D video tower (tube 2 over the 4 frames: 2 tubes, a CLS
+    each) and 7-D retrieval-pair input [b, pair, T, bs, C, H, W] on the video
+    tower, against the JAX towers (tests/test_torch_towers.py holds their
+    gradients and patch dropout)."""
     cfg = dataclasses.replace(tiny_tower("video").vision, use_tube3d=True,
                               tube_size=2)
-    with pytest.raises(NotImplementedError):
-        ttower.init_vision_params(torch.Generator(), cfg)
-    _, tcfg, _, tp = _tower_params("video")
-    with pytest.raises(NotImplementedError):
-        ttower.vision_features(tp["vision"], tcfg.vision,
-                               torch.zeros(1, 1, 2, 1, 3, 32, 32))
+    init = ttower.init_vision_params(torch.Generator(), cfg)
+    assert init["class_embedding"].shape == (2, 32)
+    assert init["patch_embedding"]["w"].shape == (3 * 2 * 16 * 16, 32)
+    rng = np.random.default_rng(12)
+    for overrides, shape in (
+            (dict(use_tube3d=True, tube_size=2), (2, 3, 4, 32, 32)),
+            ({}, (1, 2, 4, 2, 3, 32, 32))):
+        jcfg, tcfg, jp, tp = _tower_params("video", **overrides)
+        x = rng.standard_normal(shape).astype(np.float32)
+        ref = _jax_vision(jp["vision"], jcfg.vision, jnp.asarray(x),
+                          projection=jp["visual_projection"])
+        got = ttower.vision_features(tp["vision"], tcfg.vision,
+                                     torch.from_numpy(x),
+                                     projection=tp["visual_projection"])
+        videos = shape[0] * shape[1] * shape[3] if len(shape) == 7 else shape[0]
+        assert got.shape == (videos, 24)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL,
+                                   rtol=RTOL)
