@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port (missm_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--only parallel]
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. device   - needs a CUDA GPU; prints its name and power limit.
@@ -194,7 +194,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 languagebind_large("video") widths, card f32 (the kernels)
                 against the CPU (the plain versions): pooled features and
                 temporal LoRA gradients, exact launches.
- 18. summary  - a `{"kernels": [...]}` line, the card's name and power limit,
+ 18. parallel - the parallel layouts (missm_tpu_torch.parallel) on the
+                flagship at full width and depth, each rank a `python3
+                chip_smoke.py --parallel-rank` process, each world's
+                layouts in turn: one rank over NCCL
+                (init_process_group("nccl"), make_mesh), its f32 gradients
+                (TF32 off, B=64 as 4 x 16) against the phase-free step's;
+                DP 2, FSDP 2, TP 2, GPipe 2 and 1F1B 2 as two ranks sharing
+                the card over gloo at the same global batch: loss and every
+                trainable leaf's f32 gradient within 1e-5 relative of the
+                one-rank step, then bf16 samples/s, each rank's peak memory
+                and its exact K1 / K3 / K2(a) launches a step; train3 (B=8)
+                under DP 2 x GPipe 2 on four ranks, K1, K3, K2(b), K4,
+                K2(c), K4 block-diagonal and K2(a) on every stage; the
+                dryrun (missm_tpu_torch.parallel.dryrun) at N = 4 and 8 on
+                the card, every rank's hand kernels counted. Ranks sharing
+                one card are not a multi-GPU rate.
+ 19. summary  - a `{"kernels": [...]}` line, the card's name and power limit,
                 and as the last line {"ok": true, "device": {...}}.
 The kernels phase also times each `missm` custom op's host cost a call
 against the `_launch` it wraps.
@@ -313,7 +329,9 @@ COVERS.update({
     "remat policies": 9, "remat cli": (DATA_SPLITS["train"] // CLI_BATCH
                                        + DATA_SPLITS["valid"] // CLI_BATCH),
     "export artifact": 4, "export cli": -(-DATA_SPLITS["test"] // B),
-    "towers tube3d": 1, "towers 7-D": 1})
+    "towers tube3d": 1, "towers 7-D": 1,
+    # parallel: one step of each rank of each world, summed
+    "parallel": 1})
 RATES = {}                              # samples/s by timed_train's name
 
 
@@ -3575,11 +3593,458 @@ def profile_step(name, run):
               f"{e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# parallel: the layouts on the card (one rank over NCCL; two to four ranks
+# sharing the card over gloo)
+# ---------------------------------------------------------------------------
+
+PAR_STEPS = 2                   # timed bf16 steps a layout (one warm-up)
+PAR_MICRO = 16                  # rows a microbatch, as the train phase's
+PAR_GRAD_RTOL = 1e-5            # f32 gradient, as one vector, against the
+PAR_LEAF_RTOL = 1e-4            # one-rank step's; and each leaf's
+PAR_TIMEOUT = 600               # s, each world
+PAR_SCALE = "large"             # "tiny" rehearses the phase on the CPU
+PAR_DEVICE = "cuda"             # the CPU rehearsal: "cpu", and gloo for
+PAR_ONE_BACKEND = "nccl"        # the one-rank world (kernels count 0)
+# name: (n_data, n_model, n_pipe, fsdp, schedule)
+PAR_LAYOUTS = {"DP 2": (2, 1, 1, False, "gpipe"),
+               "FSDP 2": (2, 1, 1, True, "gpipe"),
+               "TP 2": (1, 2, 1, False, "gpipe"),
+               "GPipe 2": (1, 1, 2, False, "gpipe"),
+               "1F1B 2": (1, 1, 2, False, "1f1b")}
+
+
+def par_expect(n_data, n_pipe, schedule, n_vision, n_text):
+    """A rank's K1 / K3 / K2(a) launches a flagship step at the global
+    batch B in microbatches of PAR_MICRO rows: every block once a
+    microbatch (TP ranks too: each runs its heads in one launch); a pipe
+    stage its blocks for each of the M pipeline microbatches; 1F1B one
+    forward more of them in the backward."""
+    accum = B // n_data // PAR_MICRO
+    m = n_pipe if n_pipe > 1 else 1
+    sv, st = n_vision // n_pipe, n_text // n_pipe
+    again = 2 if schedule == "1f1b" and n_pipe > 1 else 1
+    return dict(attention=sv * m * accum * again,
+                attention_bwd=sv * m * accum,
+                causal_attention=st * m * accum * again)
+
+
+def par_config(scale, train3=False):
+    """The flagship (or train3) f32 config, head dropout off; at "tiny"
+    scale the CPU rehearsal's stand-in (tiny towers)."""
+    if scale == "large":
+        return (train3_config if train3 else flagship_config)(
+            "float32", dropout_prob=0.0)
+    from missm_tpu_torch.core.config import tiny_tower
+    from missm_tpu_torch.models.finetune import ModelConfig
+    from missm_tpu_torch.models.fusion import FusionConfig
+
+    mods = ("video", "audio") if train3 else ("image",)
+    return ModelConfig(
+        towers=tuple((m, tiny_tower(m, num_layers=4)) for m in mods),
+        fusion=FusionConfig(fusion_type="sum",
+                            modality_types=("language",) + mods,
+                            output_dims=10, feature_dims=24, fusion_dim=16,
+                            dropout_prob=0.0))
+
+
+def par_ids(rng, rows, cfg, vary_length):
+    if cfg.towers[0][1].text.vocab_size > 1000:
+        return text_batch(rng, rows, vary_length)
+    ids = rng.integers(1, 90, (rows, 16))
+    ids[:, -1] = 98
+    return ids, np.ones_like(ids)
+
+
+def par_batch(cfg, rows, seed=5):
+    """The flagship's f32 train batch: ids with a padding mask, images,
+    labels, codes over {0, 1, 4}."""
+    rng = np.random.default_rng(seed)
+    ids, mask = par_ids(rng, rows, cfg, vary_length=True)
+    image = rng.standard_normal(
+        (rows, 3, *cfg.towers[0][1].vision.image_size)).astype(np.float32)
+    return ({"language": {"input_ids": ids, "attention_mask": mask},
+             "image": image},
+            rng.integers(0, 10, rows), rng.choice([0, 1, 4], rows))
+
+
+def par_params(cfg, dev):
+    """Seeded flagship params with every LoRA B non-zero (so every LoRA A
+    gradient is too)."""
+    from missm_tpu_torch.models import finetune
+
+    params = finetune.init_model_params(cfg, seed=1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for block in params["encoder"]["image"]["vision"]["blocks"]:
+        for proj in block["attn"].values():
+            proj["lora_b"].normal_(0.0, 0.01, generator=gen)
+    return params
+
+
+def par_grads(params, prefix=""):
+    """{path: grad} of every leaf that has one."""
+    out = {}
+    if isinstance(params, dict):
+        for k, v in params.items():
+            out.update(par_grads(v, f"{prefix}/{k}"))
+    elif isinstance(params, list):
+        for i, v in enumerate(params):
+            out.update(par_grads(v, f"{prefix}/{i}"))
+    elif params is not None:
+        out[prefix] = params
+    return out
+
+
+def par_rank(spec: dict, rank: int) -> dict:
+    """One rank of a world of the parallel phase (see parallel_phase): each
+    layout of spec["layouts"] in turn, each on its own mesh of the one
+    process group, from the same seeded params. Returns {layout name: its
+    results}."""
+    import datetime
+    import gc
+
+    import torch.distributed as dist
+    from missm_tpu_torch.models import finetune
+
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(spec["backend"], init_method=spec["init"],
+                            rank=rank, world_size=spec["world"],
+                            timeout=datetime.timedelta(seconds=PAR_TIMEOUT))
+    out = {}
+    try:
+        cfg = par_config(spec["scale"], spec.get("train3", False))
+        params = par_params(cfg, dev) if not spec.get("train3") else \
+            finetune.init_model_params(cfg, seed=1, device=dev)
+        # the seed params and the reference gradients wait on the host, so
+        # that a layout's peak is its own
+        params = finetune.tree_map(lambda t: t.cpu(), params)
+        ref = (torch.load(spec["ref"], map_location="cpu")
+               if spec.get("ref") and rank == 0 else None)
+        for name, layout in spec["layouts"]:
+            out[name] = par_layout(spec, rank, dev, cfg, params, layout, ref)
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def par_layout(spec, rank, dev, cfg, params, layout, ref) -> dict:
+    """One layout on this rank: the f32 gradient checks the spec asks for,
+    then the timed bf16 steps."""
+    import torch.distributed as dist
+    from missm_tpu_torch.core.mesh import make_mesh
+    from missm_tpu_torch.kernels import attention as K
+    from missm_tpu_torch.models import finetune
+    from missm_tpu_torch.parallel import PipeConfig, make_layout, shard_batch
+    from missm_tpu_torch.train.step import init_train_state, make_train_step
+
+    n_data, n_model, n_pipe, fsdp, schedule = layout
+    out = {"rank": rank}
+    mesh = make_mesh(n_data, n_model, n_pipe, device_type=dev.type)
+    lay = make_layout(params, mesh, tp=n_model > 1, fsdp=fsdp,
+                      pipe=n_pipe > 1, towers=cfg.tower_dict)
+    pipe = PipeConfig(mesh, n_pipe, schedule=schedule) if n_pipe > 1 else None
+    rows = spec["rows"]
+    accum = rows // n_data // spec["micro"]
+
+    def fresh():
+        # the steps update their params in place: each starts from a copy
+        return finetune.tree_map(lambda t: t.detach().to(dev, copy=True),
+                                 params)
+
+    def step_of(c):
+        c = dataclasses.replace(c, parallel=lay, pipe=pipe)
+        state, tx = init_train_state(lay.partition(fresh()), c)
+        return state, make_train_step(c, tx, accum_steps=accum, device=dev)
+
+    if spec.get("train3"):
+        rng = np.random.default_rng(7)
+        ids, _ = par_ids(rng, rows, cfg, vary_length=False)
+        batch = ({"language": ids, **media(rng, cfg, rows)},
+                 rng.integers(0, 10, rows), rng.choice([0, 1, 2, 3], rows))
+    else:
+        batch = par_batch(cfg, rows)
+    local = shard_batch(batch, mesh, microbatches=accum)
+    gen = torch.Generator(device=dev).manual_seed(lay.data_index)
+
+    def f32_grads(c, data=None):
+        """The f32 step's loss and full gradients (TF32 off, lr 0: the step
+        leaves them in .grad); with `data`, the phase-free step's on it."""
+        with no_tf32():
+            if data is None:
+                state, step = step_of(c)
+                data = local
+            else:
+                state, tx = init_train_state(fresh(), c)
+                step = make_train_step(c, tx, accum_steps=accum, device=dev)
+            state, met = step(state, *data, 0.0, gen)
+            grads = finetune.tree_map(
+                lambda t: t.grad if t.requires_grad else None, state.params)
+            if data is local:
+                grads = lay.gather(grads)
+        return float(met["loss"]), par_grads(grads)
+
+    def rel(got, want):
+        """(relative error of the whole gradient, of each leaf whose
+        gradient is not float noise)."""
+        got = {p: g.cpu() for p, g in got.items()}
+        want = {p: g.cpu() for p, g in want.items()}
+        top = max(float(g.norm()) for g in want.values())
+        errs = {p: float((got[p] - g).norm() / g.norm())
+                for p, g in want.items() if float(g.norm()) > 1e-6 * top}
+        whole = math.sqrt(sum(float((got[p] - g).norm()) ** 2
+                              for p, g in want.items())
+                          / sum(float(g.norm()) ** 2 for g in want.values()))
+        return whole, errs
+
+    def worst(errs, k=3):
+        return {p: f"{errs[p]:.2e}" for p in
+                sorted(errs, key=errs.get, reverse=True)[:k]}
+
+    if spec.get("save_ref"):
+        # the one-rank step through the mesh against the phase-free one
+        out["f32_loss"], full = f32_grads(cfg)
+        out["free_loss"], free = f32_grads(cfg, batch)
+        _, errs = rel(full, free)
+        out["grad_leaves"] = len(errs)
+        out["free_rel_max"] = max(errs.values())
+        # the step's own noise floor: the same rows in another order (other
+        # microbatches, another summation), its gradients against the
+        # reference
+        perm = np.random.default_rng(11).permutation(rows)
+        _, moved = f32_grads(cfg, finetune.tree_map(lambda a: a[perm],
+                                                    batch))
+        whole, errs = rel(moved, free)
+        out["floor"] = {"whole": whole, "worst": worst(errs)}
+        torch.save({p: g.cpu() for p, g in free.items()}, spec["save_ref"])
+        del full, free, moved
+    if spec.get("ref"):
+        out["f32_loss"], full = f32_grads(cfg)
+        if rank == 0:
+            whole, errs = rel(full, ref)
+            out["grad_leaves"] = len(errs)
+            out["grad_rel"] = whole
+            out["grad_rel_max"] = max(errs.values())
+            out["grad_rel_worst"] = worst(errs)
+        del full
+    # bf16: the rate, the launches and this rank's peak, after a warm-up
+    bcfg = dataclasses.replace(
+        cfg, compute_dtype="bfloat16",
+        fusion=dataclasses.replace(cfg.fusion, dropout_prob=0.1))
+    state, step = step_of(bcfg)
+    state, met = step(state, *local, LR, gen)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: 0)
+    sync()
+    dist.barrier()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(spec["steps"]):
+        state, met = step(state, *local, LR, gen)
+        losses.append(float(met["loss"]))
+    sync()
+    dist.barrier()
+    dt = time.perf_counter() - t0
+    out.update(losses=losses, seconds=dt,
+               launches={k: v // spec["steps"] for k, v in
+                         K.LAUNCHES.items() if v},
+               peak_gib=(torch.cuda.max_memory_allocated() / 2**30
+                         if dev.type == "cuda" else 0.0))
+    return out
+
+
+def par_world(name, spec, tmp, card):
+    """`spec["world"]` ranks of par_rank, each a `python3 chip_smoke.py
+    --parallel-rank` process on the card; returns their results. A rank
+    that fails or hangs fails the phase."""
+    here = os.path.abspath(__file__)
+    spec = dict(spec, init="file://" + os.path.join(
+        tmp, f"rdv_{name.replace(' ', '_')}"))
+    path = os.path.join(tmp, f"spec_{name.replace(' ', '_')}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    logs = [open(os.path.join(tmp, f"{name.replace(' ', '_')}_{r}.log"),
+                 "w+") for r in range(spec["world"])]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, here, "--parallel-rank", path,
+                               str(r)], stdout=logs[r],
+                              stderr=subprocess.STDOUT)
+             for r in range(spec["world"])]
+    try:
+        for p in procs:
+            p.wait(timeout=PAR_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        text = []
+        for log in logs:
+            log.seek(0)
+            text.append(log.read())
+            log.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode]
+    if bad:
+        raise AssertionError(f"parallel {name}: ranks {bad} failed:\n"
+                             + "\n".join(text[r][-4000:] for r in bad))
+    res = [json.loads(t.strip().splitlines()[-1]) for t in text]
+    print(f"parallel {name}: {spec['world']} rank(s) over "
+          f"{spec['backend']} in {time.perf_counter() - t0:.1f} s [{card}]",
+          flush=True)
+    return res
+
+
+def parallel_phase(dev, rng, card, profile):
+    """The parallel layouts (missm_tpu_torch/parallel) on the flagship at
+    full width and depth. One rank over NCCL: the train step through
+    init_process_group("nccl") and make_mesh, its f32 gradients (TF32 off,
+    B = 64 as 4 x 16, lr 0 so they stay in .grad) against the phase-free
+    step's in the same process; they are the reference. Two ranks sharing
+    the card over gloo (NCCL refuses two ranks on one device), one world
+    running each layout of PAR_LAYOUTS in turn at the same global batch: loss and every
+    trainable leaf's gradient within PAR_LEAF_RTOL (the gradient as one
+    vector within PAR_GRAD_RTOL) relative of the
+    reference, then bf16 samples/s, each rank's peak and its exact K1 / K3 /
+    K2(a) launches a step (par_expect). train3 (B = 8) under DP x GPipe on
+    four ranks: K1, K3, K2(b), K4, K2(c), K4 block-diagonal and K2(a) on
+    every stage's blocks. Then the dryrun at N = 4 and 8 on the card, every
+    rank's hand kernels counted. The ranks on one card are not a multi-GPU
+    rate."""
+    from missm_tpu_torch.kernels import attention as K
+    from missm_tpu_torch.parallel.dryrun import dryrun
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    launches = dict.fromkeys(K.LAUNCHES, 0)
+    n_vision, n_text = layers(par_config(PAR_SCALE))
+    counted = PAR_DEVICE == "cuda"  # the plain versions count nothing
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "ref_grads.pt")
+        base = dict(rows=B, micro=PAR_MICRO, steps=PAR_STEPS,
+                    device=PAR_DEVICE, scale=PAR_SCALE)
+        one = par_world("NCCL 1", dict(
+            base, world=1, backend=PAR_ONE_BACKEND,
+            layouts=[["NCCL 1", (1, 1, 1, False, "gpipe")]], ref=None,
+            save_ref=ref_path), tmp, card)[0]["NCCL 1"]
+        print(f"parallel NCCL 1: f32 loss {one['f32_loss']:.6f}, phase-free "
+              f"{one['free_loss']:.6f}; gradients against the phase-free "
+              f"step: max relative {one['free_rel_max']:.2e} over "
+              f"{one['grad_leaves']} leaves; the step's own noise floor "
+              f"(the rows in another order): whole {one['floor']['whole']:.2e}"
+              f", worst leaves {one['floor']['worst']}; bf16 "
+              f"{B * PAR_STEPS / one['seconds']:.2f} samples/s, peak "
+              f"{one['peak_gib']:.2f} GiB, launches a step "
+              f"{one['launches']} [{card}]", flush=True)
+        if one["free_rel_max"] > PAR_GRAD_RTOL:
+            raise AssertionError("the one-rank NCCL step's gradients differ "
+                                 "from the phase-free step's")
+        RATES["parallel NCCL 1"] = B * PAR_STEPS / one["seconds"]
+        want = par_expect(1, 1, "gpipe", n_vision, n_text)
+        if counted and one["launches"] != want:
+            raise AssertionError(f"NCCL 1 launches {one['launches']}, "
+                                 f"expected {want}")
+        # every two-rank layout in one world of two processes
+        ranks = par_world("2 ranks", dict(
+            base, world=2, backend="gloo", ref=ref_path,
+            layouts=[[name, layout] for name, layout in PAR_LAYOUTS.items()]),
+            tmp, card)
+        for name, layout in PAR_LAYOUTS.items():
+            n_data, n_model, n_pipe, fsdp, schedule = layout
+            res = [r[name] for r in ranks]
+            lead = res[0]
+            rate = B * PAR_STEPS / max(r["seconds"] for r in res)
+            RATES[f"parallel {name}"] = rate
+            want = par_expect(n_data, n_pipe, schedule, n_vision, n_text)
+            print(f"parallel {name}: f32 loss {lead['f32_loss']:.6f} (one "
+                  f"rank {one['f32_loss']:.6f}), the gradient relative "
+                  f"{lead['grad_rel']:.2e} (limit {PAR_GRAD_RTOL}), worst "
+                  f"leaves {lead['grad_rel_worst']} of "
+                  f"{lead['grad_leaves']} (limit {PAR_LEAF_RTOL}); bf16 "
+                  f"{rate:.2f} samples/s, peaks "
+                  f"{[round(r['peak_gib'], 2) for r in res]} GiB, launches "
+                  f"a step a rank {[r['launches'] for r in res]} (expected "
+                  f"{want}) [{card}]", flush=True)
+            if (abs(lead["f32_loss"] - one["f32_loss"])
+                    > PAR_GRAD_RTOL * abs(one["f32_loss"])
+                    or lead["grad_rel"] > PAR_GRAD_RTOL
+                    or lead["grad_rel_max"] > PAR_LEAF_RTOL):
+                raise AssertionError(f"parallel {name}: f32 loss or "
+                                     f"gradients disagree with one rank's")
+            for r in res:
+                if counted and r["launches"] != want:
+                    raise AssertionError(
+                        f"parallel {name} rank {r['rank']}: launches "
+                        f"{r['launches']}, expected {want}")
+                for k, v in r["launches"].items():
+                    launches[k] += v
+        # train3 under DP x GPipe, 4 ranks
+        t3 = par_config(PAR_SCALE, train3=True)
+        video, audio = (t.vision for _, t in t3.towers)
+        n3 = t3.towers[-1][1].text.num_layers
+        name = "train3 DP 2 x GPipe 2"
+        res = [r[name] for r in par_world(name, dict(
+            base, rows=B3T, micro=B3T // 2, world=4, backend="gloo",
+            layouts=[[name, (2, 1, 2, False, "gpipe")]], ref=None,
+            train3=True), tmp, card)]
+        # a rank: its stage's half of the blocks, for each of M = 2
+        # pipeline microbatches of its B / 2 rows
+        want = dict(attention=video.num_layers, attention_bwd=video.num_layers,
+                    short_attention=video.num_layers,
+                    short_attention_bwd=video.num_layers,
+                    attention_unsplit=audio.num_layers,
+                    attention_unsplit_bwd=audio.num_layers,
+                    causal_attention=n3)
+        print(f"parallel {name}: bf16 "
+              f"{B3T * PAR_STEPS / max(r['seconds'] for r in res):.2f} "
+              f"samples/s, peaks {[round(r['peak_gib'], 2) for r in res]} "
+              f"GiB, launches a step a rank {[r['launches'] for r in res]} "
+              f"(expected {want}) [{card}]", flush=True)
+        for r in res:
+            if counted and r["launches"] != want:
+                raise AssertionError(f"train3 DP x GPipe rank {r['rank']}: "
+                                     f"launches {r['launches']}, expected "
+                                     f"{want}")
+            for k, v in r["launches"].items():
+                launches[k] += v
+    for n in (4, 8):
+        t0 = time.perf_counter()
+        for spec, results in dryrun(n, device=PAR_DEVICE):
+            for r, res in enumerate(results):
+                got = {k: v for k, v in res["launches"].items() if v}
+                # every rank runs hand kernels: the text tower's causal
+                # attention and the tiny vision towers' (N <= 7, unsplit)
+                if counted and not (got.get("causal_attention")
+                        and got.get("attention_unsplit")
+                        and got.get("short_attention")
+                        and got.get("attention_unsplit_bwd")):
+                    raise AssertionError(f"dryrun({n}) {spec} rank {r}: "
+                                         f"launches {got}")
+        print(f"parallel dryrun({n}) on the card: {time.perf_counter() - t0:.1f}"
+              f" s [{card}]", flush=True)
+    return {"parallel": launches}
+
+
 def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--parallel-rank":
+        # one rank of a world of the parallel phase (par_world)
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        with open(sys.argv[2]) as f:
+            spec = json.load(f)
+        print(json.dumps(par_rank(spec, int(sys.argv[3]))), flush=True)
+        return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace one eval, train, eval3, train3, ln2fc1 "
                          "eval and ln2fc1 train step with torch.profiler")
+    ap.add_argument("--only", choices=["parallel"],
+                    help="build, then run only this phase (no result "
+                         "line: the contract needs every phase)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3617,6 +4082,12 @@ def main() -> int:
     K.reset_launches()
 
     rng = np.random.default_rng(0)
+    if args.only:
+        t0 = time.perf_counter()
+        got = parallel_phase(dev, rng, card, False)
+        print(f"phase parallel: {time.perf_counter() - t0:.1f} s; launches "
+              f"{got}", flush=True)
+        return 0
     t0 = time.perf_counter()
     rows = kernel_phase(dev, rng)
     print(f"phase kernels: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3635,7 +4106,8 @@ def main() -> int:
     for path, phase in (("heads", heads_phase), ("distill", distill_phase),
                         ("sweep", sweep_phase), ("data", data_phase),
                         ("cli", cli_phase), ("remat", remat_phase),
-                        ("export", export_phase), ("towers", towers_phase)):
+                        ("export", export_phase), ("towers", towers_phase),
+                        ("parallel", parallel_phase)):
         t0 = time.perf_counter()
         paths.update(phase(dev, rng, card, args.profile))
         print(f"phase {path}: {time.perf_counter() - t0:.1f} s", flush=True)

@@ -22,7 +22,8 @@ from ..eval.artifact import ARTIFACT_FILE, export_artifact
 from ..eval.predictor import Predictor
 from ..eval.sweep import _pad_batch
 from ..train.checkpoint import restore_checkpoint
-from .common import build_model_config, make_loader_fns, make_tokenizer
+from .common import (build_model_config, make_loader_fns, make_tokenizer,
+                     round_eval_batch, setup_mesh)
 
 
 def main(argv=None):
@@ -40,6 +41,10 @@ def main(argv=None):
                 output = val
     args = test_args(raw)
     resolve_device(args.device)  # the card unless asked, before any work
+    # --distributed: a multi-device artifact over the mesh's data axis
+    mesh = setup_mesh(args)
+    if mesh is not None:
+        round_eval_batch(args, mesh)
 
     spec = DATASET_SPECS[args.datasetName]
     import pandas as pd
@@ -60,11 +65,15 @@ def main(argv=None):
     example = _pad_batch(pred._collate_raw([ds[i][0] for i in range(n)]),
                          args.batch_size)
     export_artifact(pred.params, cfg, example, output, device=args.device,
+                    mesh=mesh,
                     extra_manifest={"datasetName": args.datasetName,
                                     "fusion_type": args.fusion_type,
                                     "checkpoint": ckpt})
-    size = os.path.getsize(os.path.join(output, ARTIFACT_FILE))
-    print(f"wrote {output} ({size / 1e6:.1f} MB, batch {args.batch_size})")
+    import torch.distributed as dist
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        size = os.path.getsize(os.path.join(output, ARTIFACT_FILE))
+        print(f"wrote {output} ({size / 1e6:.1f} MB, batch "
+              f"{args.batch_size})")
     return output
 
 

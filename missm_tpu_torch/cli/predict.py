@@ -19,7 +19,8 @@ import torch
 from ..compat.args import test_args
 from ..data.datasets import DATASET_SPECS, MMDataset, encode_labels
 from ..eval.predictor import Predictor
-from .common import build_model_config, make_loader_fns, make_tokenizer
+from .common import (build_model_config, make_loader_fns, make_tokenizer,
+                     setup_mesh)
 
 
 def _serve_artifact(path, samples, args):
@@ -65,6 +66,11 @@ def main(argv=None):
             else:
                 artifact = val
     args = test_args(raw)
+    # --distributed: a multi-device artifact serves each rank's rows; a
+    # checkpoint's Predictor runs whole on every rank, and rank 0 writes
+    import torch.distributed as dist
+    setup_mesh(args)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
 
     spec = DATASET_SPECS[args.datasetName]
     import pandas as pd
@@ -93,9 +99,10 @@ def main(argv=None):
         "pred": preds,
         "confidence": probs.max(axis=1),
     })
-    out.to_csv(output, index=False)
-    acc = float((out["label"] == out["pred"]).mean())
-    print(f"wrote {output} ({len(out)} rows, accuracy {acc:.4f})")
+    if lead:
+        out.to_csv(output, index=False)
+        acc = float((out["label"] == out["pred"]).mean())
+        print(f"wrote {output} ({len(out)} rows, accuracy {acc:.4f})")
     return out
 
 

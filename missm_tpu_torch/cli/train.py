@@ -1,9 +1,15 @@
 """Training entry point, after missm_tpu/cli/train.py — mirrors
 `train_ddp.py` end to end, on one device (`--device`, the card by
-default).
+default) or, with `--distributed`, on one process a device in a parallel
+layout (`--mesh_model`, `--fsdp`, `--mesh_pipe`; pure DP without them):
 
 python -m missm_tpu_torch.cli.train --datasetName mvsa --fusion_type sum \
     --modality_types language image --csv_path .../label.csv
+torchrun --nproc_per_node 8 -m missm_tpu_torch.cli.train \
+    --distributed true --mesh_model 2 ...
+
+`--batch_size` is a rank's, as the reference's DDP batch is a device's
+(train_ddp.py:38): a data replica's ranks read the same rows of its shard.
 
 Writes ./experiments/<dataset>_<fusion>/<save_path> (best_model, and last
 with --checkpoint_every or on SIGTERM), TensorBoard scalars under
@@ -19,8 +25,10 @@ from ..compat.args import train_args
 from ..data.loaders import training_loader
 from ..train.checkpoint import restore_checkpoint
 from ..train.loop import PreemptedError, train_loop
+from ..core.mesh import data_coordinate
 from .common import (FORCE_TRAIN_MISSING, build_model_config, init_params,
-                     make_loader_fns, make_tokenizer, to_device)
+                     make_loader_fns, make_tokenizer, setup_layout,
+                     setup_mesh, to_device, validate_pipe_batch)
 
 
 def main(argv=None):
@@ -34,8 +42,13 @@ def main(argv=None):
     import random
 
     import numpy as np
-    random.seed(args.seed)
-    np.random.seed(args.seed)
+    mesh = setup_mesh(args)
+    validate_pipe_batch(args, mesh)
+    shard, n_shards = data_coordinate(mesh)
+    # the train-missing draws of a data replica's ranks agree; replicas'
+    # differ, as their rows do
+    random.seed(args.seed + shard)
+    np.random.seed(args.seed + shard)
 
     experiment = f"{args.datasetName}_{args.fusion_type}"
     save_path = os.path.join("./experiments", experiment, args.save_path)
@@ -47,9 +60,10 @@ def main(argv=None):
     tokenizer = make_tokenizer(args)
     media_loaders = make_loader_fns(args)
     train_loader_, valid_loader, num_classes = training_loader(
-        args, args.csv_path, tokenizer, media_loaders)
+        args, args.csv_path, tokenizer, media_loaders, num_shards=n_shards,
+        shard_index=shard)
 
-    cfg = build_model_config(args, num_classes)
+    cfg = build_model_config(args, num_classes, mesh=mesh)
     params = init_params(args, cfg, args.seed)
 
     teacher_fusion = None
@@ -71,12 +85,20 @@ def main(argv=None):
         from ..train.trainability import cast_frozen_params
         params = cast_frozen_params(params, cfg)
 
+    # this rank's slices of the full tree (the teacher's fusion like the
+    # student's)
+    cfg, params = setup_layout(args, cfg, params, mesh)
+    if cfg.parallel is not None and teacher_fusion is not None:
+        teacher_fusion = cfg.parallel.partition(
+            {"fusion": teacher_fusion})["fusion"]
+
     writer = None
-    try:
-        from torch.utils.tensorboard import SummaryWriter
-        writer = SummaryWriter(log_dir=log_dir)
-    except ImportError:
-        pass
+    if cfg.parallel is None or _rank() == 0:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+            writer = SummaryWriter(log_dir=log_dir)
+        except ImportError:
+            pass
 
     resume_from = args.resume
     if resume_from == "auto":
@@ -119,8 +141,14 @@ def main(argv=None):
 
     if writer is not None:
         writer.close()
-    print("Training completed!")
+    if _rank() == 0:
+        print("Training completed!")
     return best_params, history
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 if __name__ == "__main__":

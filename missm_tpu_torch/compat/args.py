@@ -13,11 +13,10 @@ is silently ignored:
           --video_decode_backend, --remat true|false|a named policy (also
           per modality),
           --grad_accum, --checkpoint_every, --resume, --profile_dir,
-          --bf16, --frozen_bf16, --device
-  raises: --mesh_model > 1, --fsdp, --mesh_pipe > 1, --pipe_microbatches,
-          --pipe_schedule 1f1b and --distributed (parallel layouts, ROADMAP
-          queue 1 item 9); --uint8_upload true (the data layer has no
-          quantized upload)
+          --bf16, --frozen_bf16, --device, and the parallel layouts:
+          --mesh_model, --fsdp, --mesh_pipe, --pipe_microbatches,
+          --pipe_schedule and --distributed (parallel/, cli/common.py)
+  raises: --uint8_upload true (the data layer has no quantized upload)
 
 `--device` (the port's `device=`) defaults to `cuda` in both parsers, as
 the JAX package's test parser defaults to `tpu`; `--device cpu` runs the
@@ -38,8 +37,7 @@ def _distributed(v):
     """--distributed value: a bool ('true' = initialize from the launcher
     env) or an explicit 'coordinator_ip:port,num_processes,process_id'
     rendezvous triple. A malformed triple is a loud parse error (silently
-    coercing it to False would run single-process with no warning). Any
-    value but false then raises in _finalize: not ported (item 9)."""
+    coercing it to False would run single-process with no warning)."""
     s = str(v).strip()
     if "," not in s and ":" not in s:
         # only explicit bool words take the quiet path: '10.0.0.1' (a
@@ -111,9 +109,6 @@ def _common_model_flags(p: argparse.ArgumentParser):
     p.add_argument("--dropout_prob", type=float, default=0.1)
 
 
-_ITEM9 = "not ported: parallel layouts are ROADMAP queue 1 item 9"
-
-
 def _extras(p: argparse.ArgumentParser):
     p.add_argument("--config", type=str, default=None,
                    help="YAML config file (flags override file values); "
@@ -123,20 +118,27 @@ def _extras(p: argparse.ArgumentParser):
                         "transforms run: cuda (the default) or cpu (the "
                         "plain PyTorch path)")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="tensor-parallel axis size; only 1 runs (> 1 is "
-                        f"{_ITEM9})")
+                   help="Megatron tensor-parallel axis size (1 = pure DP, "
+                        "the reference's DDP); it must divide every "
+                        "tower's heads")
     p.add_argument("--fsdp", action="store_true",
-                   help=f"ZeRO-3-style sharding over the data axis; {_ITEM9}")
+                   help="shard params + Adam moments over the data axis "
+                        "(ZeRO-3); a memory lever, the math is DP's")
     p.add_argument("--mesh_pipe", type=int, default=1,
-                   help="pipeline-parallel stages; only 1 runs (> 1 is "
-                        f"{_ITEM9})")
+                   help="pipeline stages over every tower's blocks (each "
+                        "stage holds layers/stages blocks and their Adam "
+                        "state); S must divide every tower's layer count "
+                        "(ViT-L 24 + text 12: S in {2, 3, 4, 6, 12})")
     p.add_argument("--pipe_microbatches", type=int, default=0,
-                   help=f"microbatches per pipelined call; only 0 runs "
-                        f"({_ITEM9})")
+                   help="microbatches per pipelined call (0 = mesh_pipe, "
+                        "the minimum; more shrinks the (S-1)/(M+S-1) "
+                        "bubble at smaller per-microbatch shapes)")
     p.add_argument("--pipe_schedule", type=str, default="gpipe",
                    choices=["gpipe", "1f1b"],
-                   help=f"pipeline schedule; only gpipe, the default, "
-                        f"runs (1f1b is {_ITEM9})")
+                   help="pipeline schedule: gpipe (every microbatch's "
+                        "activations live until the backward) or 1f1b "
+                        "(only the stage inputs kept; the backward "
+                        "recomputes one microbatch at a time)")
     p.add_argument("--model_scale", type=str, default="large",
                    choices=["large", "tiny"])
     p.add_argument("--init", type=str, default="checkpoint",
@@ -196,8 +198,12 @@ def _extras(p: argparse.ArgumentParser):
                    help="only false runs: the port's data layer resizes "
                         "on the card and has no quantized host upload")
     p.add_argument("--distributed", type=_distributed, default=False,
-                   help=f"multi-process rendezvous; only false runs "
-                        f"({_ITEM9})")
+                   help="multi-process rendezvous, one process a device: "
+                        "'true' reads torchrun's env (RANK, WORLD_SIZE, "
+                        "LOCAL_RANK), or an explicit "
+                        "'coordinator_ip:port,num_processes,process_id' "
+                        "triple (a tcp:// rendezvous); NCCL on the card, "
+                        "gloo on the CPU")
 
 
 def train_args(argv=None) -> argparse.Namespace:
@@ -277,20 +283,6 @@ def _finalize(parser: argparse.ArgumentParser, argv):
                  if a.type is not None}
         apply_yaml_config(args, args.config, explicit_cli_keys(parser, raw),
                           types=types)
-    # the extras whose features are not ported: anything but the default
-    # is an error, never ignored
-    unported = [(args.mesh_model != 1, f"--mesh_model {args.mesh_model}"),
-                (args.fsdp, "--fsdp"),
-                (args.mesh_pipe != 1, f"--mesh_pipe {args.mesh_pipe}"),
-                (args.pipe_microbatches != 0,
-                 f"--pipe_microbatches {args.pipe_microbatches}"),
-                (args.pipe_schedule != "gpipe",
-                 f"--pipe_schedule {args.pipe_schedule}"),
-                (args.distributed is not False,
-                 f"--distributed {args.distributed}")]
-    for given, flag in unported:
-        if given:
-            parser.error(f"{flag} is {_ITEM9}")
     if args.uint8_upload:
         parser.error("--uint8_upload true is not ported: the port's data "
                      "layer resizes on the card and has no quantized host "
@@ -301,9 +293,19 @@ def _finalize(parser: argparse.ArgumentParser, argv):
     if accum > 1 and args.batch_size % accum:
         parser.error(f"--batch_size {args.batch_size} must be divisible by "
                      f"--grad_accum {accum} (equal microbatches)")
+    if args.mesh_model < 1:
+        parser.error(f"--mesh_model must be >= 1, got {args.mesh_model}")
+    n_pipe = args.mesh_pipe
+    if n_pipe < 1:
+        parser.error(f"--mesh_pipe must be >= 1, got {n_pipe}")
     if args.checkpoint_every < 0:
         parser.error(f"--checkpoint_every must be >= 0, got "
                      f"{args.checkpoint_every}")
+    mb = args.pipe_microbatches
+    if mb and mb < n_pipe:
+        parser.error(f"--pipe_microbatches {mb} < --mesh_pipe {n_pipe}: "
+                     f"fewer microbatches than stages leaves stages idle "
+                     f"every tick (minimum is one per stage)")
     if isinstance(args.remat, tuple):
         # keys can only be checked here, against the run's modalities: a
         # typo'd key ("adio=...") would otherwise fall through to the

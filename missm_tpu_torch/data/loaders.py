@@ -185,9 +185,12 @@ def training_loader(args, csv_path: str, tokenizer, media_loaders,
 
 
 def testing_loader(args, csv_path: str, tokenizer, media_loaders,
-                   missing_path: Optional[str] = None):
+                   missing_path: Optional[str] = None, num_shards: int = 1,
+                   shard_index: int = 0):
     """(train_loader, {missing_type: {ratio: loader}}, num_classes) —
-    reference data_loader.py:318-361. ratio 0.0 is the complete test set."""
+    reference data_loader.py:318-361. ratio 0.0 is the complete test set.
+    `num_shards` / `shard_index`: this data rank's shard of every loader
+    (eval/sweep.py gathers the shards' outputs)."""
     spec = DATASET_SPECS[args.datasetName]
     data_path = "/".join(csv_path.split("/")[:-1])
     df = _read_csv(csv_path)
@@ -204,7 +207,8 @@ def testing_loader(args, csv_path: str, tokenizer, media_loaders,
                            labels[df["mode"] == "train"], "train", False,
                            retrieval=args.fusion_type == "retrieval")
     mk = lambda ds: BatchLoader(ds, args.batch_size, tokenizer, media_loaders,
-                                shuffle=False,
+                                shuffle=False, num_shards=num_shards,
+                                shard_index=shard_index,
                                 num_workers=getattr(args, "num_workers", 0))
     test_loader: Dict[str, Dict[float, BatchLoader]] = {}
     for modal in args.test_missing_type:

@@ -17,6 +17,13 @@ The exported function is `Predictor._predict` without the params:
 `(data, missing_index) -> {"probs", "preds"}`. Serve partial batches
 through `ServingArtifact.predict_arrays`, which pads and slices as the
 Predictor does.
+
+A multi-device artifact (`mesh=`, missm_tpu/eval/artifact.py:63-67,
+88-100, 135-160) serves a batch over the data axis: the program is one
+rank's, at batch / n_data rows, with the params replicated in it, and the
+manifest records `num_devices` and `data_axis`. `ServingArtifact`, under a
+process group of that many ranks, runs each rank's rows and gathers the
+results to every rank; under fewer ranks it raises, as JAX does.
 """
 from __future__ import annotations
 
@@ -78,21 +85,29 @@ def export_artifact(params, cfg: ModelConfig, example_data: Mapping,
     """Export the inference function of `params` / `cfg` on `device` to
     `out_dir`. example_data: one batch ({modality: array, tensor or token
     dict}) fixing the shapes and types; its batch dim is the artifact's
-    batch size."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a multi-device serving artifact is not ported: parallel layouts "
-            "are ROADMAP queue 1 item 9")
+    batch size. `mesh`: a multi-device artifact over its data axis (the
+    params full and replicated, the batch dividing the axis); under a
+    process group rank 0 writes it."""
+    from ..core.mesh import DATA_AXIS, axis_size
+
     dev = resolve_device(device)
     batch = _batch_rows(example_data)
+    n_dev = axis_size(mesh, DATA_AXIS)
+    if batch % n_dev:
+        raise ValueError(
+            f"batch {batch} not divisible by the mesh's data axis {n_dev} — "
+            f"the exported program shards the batch dim")
     data = _to_tensors(dict(example_data), dev)
-    missing = torch.zeros(batch, dtype=torch.int32, device=dev)
+    local = _rows(data, slice(0, batch // n_dev))
+    missing = torch.zeros(batch // n_dev, dtype=torch.int32, device=dev)
     with torch.no_grad():
         program = torch.export.export(_Serving(params, cfg, dev),
-                                      (data, missing), strict=False)
-    os.makedirs(out_dir, exist_ok=True)
+                                      (local, missing), strict=False)
+    writes = not _grouped() or torch.distributed.get_rank() == 0
     path = os.path.join(out_dir, ARTIFACT_FILE)
-    torch.export.save(program, path)
+    if writes:
+        os.makedirs(out_dir, exist_ok=True)
+        torch.export.save(program, path)
 
     def spec(x):
         return {"shape": list(x.shape), "dtype": str(x.dtype).split(".")[-1]}
@@ -104,30 +119,62 @@ def export_artifact(params, cfg: ModelConfig, example_data: Mapping,
         "num_classes": n_cls,
         "modality_types": list(cfg.fusion.modality_types),
         "inputs": tree_map(spec, data),
-        "missing_index": spec(missing),
+        "missing_index": {"shape": [batch], "dtype": "int32"},
         "outputs": {"probs": {"shape": [batch, n_cls], "dtype": "float32"},
                     "preds": {"shape": [batch], "dtype": "int64"}},
         "device": dev.type,
         "torch_version": torch.__version__,
         "op_namespace": ops.NAMESPACE,
-        "artifact_bytes": os.path.getsize(path),
-        "num_devices": 1,
+        "num_devices": n_dev,
+        "data_axis": DATA_AXIS,
     }
-    manifest.update(dict(extra_manifest or {}))
-    with open(os.path.join(out_dir, MANIFEST_FILE), "w") as f:
-        json.dump(manifest, f, indent=1, sort_keys=True)
+    if writes:
+        manifest["artifact_bytes"] = os.path.getsize(path)
+        manifest.update(dict(extra_manifest or {}))
+        with open(os.path.join(out_dir, MANIFEST_FILE), "w") as f:
+            json.dump(manifest, f, indent=1, sort_keys=True)
+    if _grouped():
+        torch.distributed.barrier()
     return out_dir
+
+
+def _grouped() -> bool:
+    dist = torch.distributed
+    return (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1)
+
+
+def _rows(tree, sl):
+    if isinstance(tree, Mapping):
+        return {k: _rows(v, sl) for k, v in tree.items()}
+    return tree[sl]
 
 
 class ServingArtifact:
     """A loaded artifact: `.predict_arrays` pads a partial batch to the
-    exported batch size and slices the results back, as Predictor does."""
+    exported batch size and slices the results back, as Predictor does.
+    A multi-device artifact (manifest num_devices > 1) needs a process
+    group of that many ranks: each runs its rows of the batch and the
+    results are gathered to every rank."""
 
     def __init__(self, program, manifest: Mapping):
         self._module = program.module()
         self.manifest = dict(manifest)
         self.batch_size = int(manifest["batch_size"])
         self.device = resolve_device(manifest["device"])
+        self.num_devices = int(manifest.get("num_devices", 1))
+        if self.num_devices > 1:
+            dist = torch.distributed
+            have = (dist.get_world_size() if dist.is_available()
+                    and dist.is_initialized() else 1)
+            if have < self.num_devices:
+                raise ValueError(
+                    f"artifact was exported for {self.num_devices} "
+                    f"devices; only {have} available")
+            if have > self.num_devices:
+                raise ValueError(
+                    f"artifact was exported for {self.num_devices} "
+                    f"devices; the process group has {have} ranks")
 
     def _typed(self, tree, specs):
         if isinstance(tree, Mapping):
@@ -152,10 +199,20 @@ class ServingArtifact:
         else:
             missing_index = _pad_batch(np.asarray(missing_index, np.int32),
                                        target)
-        with torch.no_grad():
-            out = self._module(
-                self._typed(data, self.manifest["inputs"]),
-                self._typed(missing_index, self.manifest["missing_index"]))
+        data = self._typed(data, self.manifest["inputs"])
+        missing_index = self._typed(missing_index,
+                                    self.manifest["missing_index"])
+        if self.num_devices > 1:
+            from ..parallel.collectives import all_gather
+            b = target // self.num_devices
+            r = torch.distributed.get_rank()
+            with torch.no_grad():
+                out = self._module(_rows(data, slice(r * b, (r + 1) * b)),
+                                   missing_index[r * b:(r + 1) * b])
+            out = {k: all_gather(v, 0, None) for k, v in out.items()}
+        else:
+            with torch.no_grad():
+                out = self._module(data, missing_index)
         return (out["preds"].cpu().numpy()[:n],
                 out["probs"].float().cpu().numpy()[:n])
 

@@ -51,7 +51,7 @@ def _remat_for(remat, modality):
 
 def encode(params, tower_cfgs: Mapping[str, TowerConfig], inputs: Mapping, *,
            use_temp: bool = True, train: bool = False, remat=False,
-           generator: torch.Generator | None = None
+           generator: torch.Generator | None = None, tp=None, pipe=None
            ) -> Dict[str, torch.Tensor]:
     """inputs: {'language': input_ids [B, L] or {'input_ids', 'attention_mask'}}
     and/or {modality: pixel_values [B, C, H, W] or video [B, C, T, H, W]}.
@@ -61,7 +61,9 @@ def encode(params, tower_cfgs: Mapping[str, TowerConfig], inputs: Mapping, *,
     masking happens after the encoder, in the fusion head. `remat` is one
     policy or a per-tower spec, resolved by _remat_for for each tower and for
     "language" (models/tower.py::_block_forward). `generator` feeds the
-    vision towers' patch dropout in train mode (the only encoder draw)."""
+    vision towers' patch dropout in train mode (the only encoder draw).
+    `tp` (a ModelAxis) and `pipe` (a PipeConfig) run every tower's blocks
+    under Megatron TP and over the pipe axis."""
     out = {}
     any_cfg = next(iter(tower_cfgs.values()))
     for name, value in inputs.items():
@@ -73,7 +75,8 @@ def encode(params, tower_cfgs: Mapping[str, TowerConfig], inputs: Mapping, *,
             _, pooled = text_features(params["language"]["text"], any_cfg.text,
                                       ids, am,
                                       remat=_remat_for(remat, "language"),
-                                      projection=params["language"]["proj"])
+                                      projection=params["language"]["proj"],
+                                      tp=tp, pipe=pipe)
             out[name] = l2_normalize(pooled)
         else:
             pooled = vision_features(params[name]["vision"],
@@ -81,7 +84,7 @@ def encode(params, tower_cfgs: Mapping[str, TowerConfig], inputs: Mapping, *,
                                      train=train,
                                      remat=_remat_for(remat, name),
                                      projection=params[name]["proj"],
-                                     generator=generator)
+                                     generator=generator, tp=tp, pipe=pipe)
             pooled = l2_normalize(pooled)
             if use_temp:
                 pooled = pooled * torch.exp(params[name]["logit_scale"])

@@ -30,12 +30,20 @@ class ModelConfig:
     it does not name gets True), as encoder._remat_for resolves it. True
     recomputes every transformer block of the tower in the backward; a
     policy name (models/tower.py::REMAT_POLICIES) keeps the values it
-    names."""
+    names.
+
+    pipe: a parallel.pipeline.PipeConfig: every tower's blocks run as a
+    pipeline over the mesh's pipe axis (missm_tpu/models/finetune.py:38-41).
+    parallel: the run's parallel.partitioning.Layout (the JAX package's
+    param shardings): Megatron TP in the blocks, the FSDP gather before
+    use; params are then this rank's (Layout.partition)."""
     towers: Tuple[Tuple[str, TowerConfig], ...]
     fusion: FusionConfig
     use_temp: bool = True
     remat: bool | str | tuple | Mapping = False
     compute_dtype: str = "float32"
+    pipe: object | None = None
+    parallel: object | None = None
 
     @property
     def tower_dict(self):
@@ -94,12 +102,24 @@ def init_model_params(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
             "fusion": init_fusion(gen, cfg.fusion)}
 
 
+def _gathered(cfg: ModelConfig, tree, part: str):
+    """`tree` (params[part] of this rank) with its FSDP shards gathered
+    (Layout.materialize); as it is without a layout."""
+    lay = cfg.parallel
+    if lay is None:
+        return tree
+    return lay.materialize(tree, lay.local_specs[part])
+
+
 def _encode(params, cfg: ModelConfig, data, device, train, generator=None):
     dt = getattr(torch, cfg.compute_dtype)
     data = _prepare_inputs(data, dt, resolve_device(device))
-    embeds = encode(cast_tree(params["encoder"], dt), cfg.tower_dict, data,
-                    use_temp=cfg.use_temp, train=train, remat=cfg.remat,
-                    generator=generator)
+    # cast, then gather: FSDP moves the compute type's bytes
+    enc = _gathered(cfg, cast_tree(params["encoder"], dt), "encoder")
+    tp = cfg.parallel.model_axis if cfg.parallel is not None else None
+    embeds = encode(enc, cfg.tower_dict, data, use_temp=cfg.use_temp,
+                    train=train, remat=cfg.remat, generator=generator, tp=tp,
+                    pipe=cfg.pipe)
     return {k: v.float() for k, v in embeds.items()}
 
 
@@ -117,8 +137,9 @@ def model_forward(params, cfg: ModelConfig, data: Mapping, missing_index, *,
     turn."""
     embeds = _encode(params, cfg, data, device, train, generator)
     missing_index = torch.as_tensor(missing_index, device=resolve_device(device))
-    return fusion_forward(params["fusion"], cfg.fusion, embeds, missing_index,
-                          train=train, generator=generator)
+    return fusion_forward(_gathered(cfg, params["fusion"], "fusion"),
+                          cfg.fusion, embeds, missing_index, train=train,
+                          generator=generator)
 
 
 @torch.inference_mode()

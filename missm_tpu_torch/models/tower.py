@@ -28,7 +28,9 @@ from ..core.config import TextConfig, TowerConfig, VisionConfig
 from ..kernels import ln_linear as _lnl
 from ..ops.attention import multi_head_attention, short_attention
 from ..ops.basic import (get_activation, keep_contexts, l2_normalize,
-                         layer_norm, linear)
+                         layer_norm, linear, tp_linear)
+from ..parallel.collectives import copy_to_model
+from ..parallel.pipeline import pipeline_blocks
 
 # ---------------------------------------------------------------------------
 # Initialization (the JAX package's distributions, drawn from a Generator)
@@ -197,7 +199,19 @@ def init_tower_params(gen: torch.Generator, cfg: TowerConfig):
 # ---------------------------------------------------------------------------
 
 
-def _temporal(p, x, *, time, num_heads, act, eps, lora_scaling):
+def _mlp(p, ln, x, *, act, eps, lora_scaling=None, tp=None):
+    """x + fc2(act(fc1(LN(x)))), fc1 column- and fc2 row-parallel under TP
+    (`tp`, a ModelAxis); the wide value is named "mlp_wide"."""
+    h = layer_norm(ln, x, eps)
+    if tp is not None:
+        h = copy_to_model(h, tp)
+    wide = tp_linear(p["fc1"], h, tp, "col", lora_scaling=lora_scaling,
+                     name="mlp_wide")
+    return x + tp_linear(p["fc2"], act(wide, name="mlp_wide_act"), tp, "row",
+                         lora_scaling=lora_scaling)
+
+
+def _temporal(p, x, *, time, num_heads, act, eps, lora_scaling, tp=None):
     """The temporal half of a video block over x [(B*T), N, D], frame-minor:
     the temporal embedding (T > 1), then attention over the T frames of each
     (video, token) and the optional temporal MLP, each pre-LN and residual.
@@ -211,36 +225,37 @@ def _temporal(p, x, *, time, num_heads, act, eps, lora_scaling):
     ht = layer_norm(p["tln1"], x, eps)
     ht = ht.reshape(-1, T, N, D).transpose(1, 2).reshape(-1, T, D)
     ht = short_attention(p["tattn"], ht, num_heads=num_heads,
-                         lora_scaling=lora_scaling)
+                         lora_scaling=lora_scaling, tp=tp)
     x = x + ht.reshape(-1, N, T, D).transpose(1, 2).reshape(-1, N, D)
     if "tmlp" in p:
         # per token as well: it runs on the [(B*T), N, D] stream as it is
-        wide = linear(p["tmlp"]["fc1"], layer_norm(p["tln2"], x, eps),
-                      lora_scaling=lora_scaling, name="mlp_wide")
-        x = x + linear(p["tmlp"]["fc2"], act(wide, name="mlp_wide_act"),
-                       lora_scaling=lora_scaling)
+        x = _mlp(p["tmlp"], p["tln2"], x, act=act, eps=eps,
+                 lora_scaling=lora_scaling, tp=tp)
     return x
 
 
 def _block(p, x, *, num_heads, act, eps, causal=False, key_bias=None,
-           time=None, lora_scaling=None):
+           time=None, lora_scaling=None, tp=None):
+    """One block; under Megatron TP (`tp`, a ModelAxis) p holds this rank's
+    columns and rows (parallel/partitioning.py) and x stays replicated."""
     if time is not None:
         x = _temporal(p, x, time=time, num_heads=num_heads, act=act, eps=eps,
-                      lora_scaling=lora_scaling)
+                      lora_scaling=lora_scaling, tp=tp)
         lora_scaling = None  # the spatial attention has no LoRA here
     h = x + multi_head_attention(p["attn"], layer_norm(p["ln1"], x, eps),
                                  num_heads=num_heads, causal=causal,
                                  key_bias=key_bias, lora_scaling=lora_scaling,
-                                 out_name="attn_out")
+                                 out_name="attn_out", tp=tp)
     # ln2 -> fc1 through the fused kernel only where the switch is on and the
-    # JAX package's shape rule admits it (the temporal MLP stays unfused)
-    if _lnl.FUSE_LN2_FC1 and _lnl.ln_linear_available(h, p["mlp"]["fc1"]):
+    # JAX package's shape rule admits it (the temporal MLP stays unfused).
+    # Under TP the fused kernel's LN gradients would be partial sums, so the
+    # MLP stays unfused there.
+    if (tp is None and _lnl.FUSE_LN2_FC1
+            and _lnl.ln_linear_available(h, p["mlp"]["fc1"])):
         wide = _lnl.ln_linear(h, p["ln2"], p["mlp"]["fc1"], eps,
                               name="mlp_wide")
-    else:
-        wide = linear(p["mlp"]["fc1"], layer_norm(p["ln2"], h, eps),
-                      name="mlp_wide")
-    return h + linear(p["mlp"]["fc2"], act(wide, name="mlp_wide_act"))
+        return h + linear(p["mlp"]["fc2"], act(wide, name="mlp_wide_act"))
+    return _mlp(p["mlp"], p["ln2"], h, act=act, eps=eps, tp=tp)
 
 
 # The values each named policy keeps, after missm_tpu/models/tower.py:318-402
@@ -288,19 +303,36 @@ def _block_forward(p, x, *, remat=False, **kwargs):
     return checkpoint(fn, x, use_reentrant=False, context_fn=contexts)
 
 
-def _encoder(blocks, x, **kwargs):
+def _encoder(blocks, x, *, pipe=None, key_bias=None, time=None, **kwargs):
+    """The blocks in order; with `pipe` (parallel.pipeline.PipeConfig,
+    n_pipe > 1) as a pipeline over the mesh's pipe axis, `blocks` being this
+    stage's: the same per-block math in another schedule. A temporal tower's
+    microbatches hold whole videos (group = T), and the text key bias splits
+    with the rows."""
+    if pipe is not None and pipe.n_pipe > 1:
+        def block_fn(local, h, *extras):
+            kb = extras[0] if extras else None
+            for p in local:
+                h = _block_forward(p, h, key_bias=kb, time=time, **kwargs)
+            return h
+
+        return pipeline_blocks(
+            pipe, blocks, x, () if key_bias is None else (key_bias,),
+            group=time[0] if time is not None else 1, block_fn=block_fn)
     for p in blocks:
-        x = _block_forward(p, x, **kwargs)
+        x = _block_forward(p, x, key_bias=key_bias, time=time, **kwargs)
     return x
 
 
 def text_features(params, cfg: TextConfig, input_ids, attention_mask=None, *,
-                  remat=False, projection=None):
+                  remat=False, projection=None, tp=None, pipe=None):
     """input_ids: [B, L] -> (last_hidden [B, L, D], pooled [B, D]).
 
     attention_mask: optional [B, L] (1 = attend, 0 = pad), turned into the
     additive key bias (finfo(float32).min at pads) that joins the causal mask.
-    `projection` (no bias) maps pooled into the shared embedding space."""
+    `projection` (no bias) maps pooled into the shared embedding space.
+    `tp` (a ModelAxis) and `pipe` (a PipeConfig) run the blocks under
+    Megatron TP and over the pipe axis."""
     B, L = input_ids.shape
     input_ids = input_ids.long()
     x = params["token_embedding"][input_ids]
@@ -312,7 +344,8 @@ def text_features(params, cfg: TextConfig, input_ids, attention_mask=None, *,
                                0.0).float()
     x = _encoder(params["blocks"], x, num_heads=cfg.num_heads,
                  act=get_activation(cfg.hidden_act), eps=cfg.layer_norm_eps,
-                 causal=True, key_bias=key_bias, remat=remat)
+                 causal=True, key_bias=key_bias, remat=remat, tp=tp,
+                 pipe=pipe)
     x = layer_norm(params["final_ln"], x, cfg.layer_norm_eps)
     # EOT pooling: the first position of the highest token id
     eot = torch.argmax(input_ids, dim=-1)
@@ -397,7 +430,7 @@ def _embed(params, cfg: VisionConfig, video, B, T):
 def vision_features(params, cfg: VisionConfig, pixel_values, *, train=False,
                     remat=False, projection=None,
                     generator: torch.Generator | None = None,
-                    keep_indices=None):
+                    keep_indices=None, tp=None, pipe=None):
     """pixel_values: [B, C, H, W], [B, C, T, H, W] or the 7-D
     retrieval-pair layout -> pooled [B, D] (CLS -> post-LN per frame or
     tube -> mean over them -> projection).
@@ -407,7 +440,7 @@ def vision_features(params, cfg: VisionConfig, pixel_values, *, train=False,
     `generator` (patch_keep_indices) when none are given; without either it
     raises. The JAX package runs large batches in chunks of whole videos
     (`chunk_instances`), which does not change the result; the port runs
-    one chunk."""
+    one chunk. `tp` and `pipe` as in text_features."""
     B, T, video = _video(pixel_values)
     x, T = _embed(params, cfg, video, B, T)
     if train and cfg.force_patch_dropout > 0.0:
@@ -424,7 +457,8 @@ def vision_features(params, cfg: VisionConfig, pixel_values, *, train=False,
     time = (T, x.shape[1]) if cfg.add_time_attn else None
     x = _encoder(params["blocks"], x, num_heads=cfg.num_heads,
                  act=get_activation(cfg.hidden_act), eps=cfg.layer_norm_eps,
-                 time=time, lora_scaling=lora_scaling, remat=remat)
+                 time=time, lora_scaling=lora_scaling, remat=remat, tp=tp,
+                 pipe=pipe)
     pooled = layer_norm(params["post_ln"], x[:, 0, :], cfg.layer_norm_eps)
     pooled = pooled.reshape(B, T, -1).mean(dim=1)
     if projection is not None:

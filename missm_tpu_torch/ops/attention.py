@@ -18,25 +18,40 @@ from __future__ import annotations
 import torch
 
 from ..kernels import attention as kernels
-from .basic import linear, named
+from ..parallel.collectives import copy_to_model
+from .basic import named, tp_linear
 
 
-def _qkv(params, x, lora_scaling, name):
-    return tuple(linear(params[p], x, lora_scaling=lora_scaling, name=name)
+def _qkv(params, x, lora_scaling, name, tp):
+    """The q, k and v projections; under TP (`tp`, a ModelAxis) this rank's
+    columns of each, x entering the model axis once for the three."""
+    if tp is not None:
+        x = copy_to_model(x, tp)
+    return tuple(tp_linear(params[p], x, tp, "col",
+                           lora_scaling=lora_scaling, name=name)
                  for p in ("q", "k", "v"))
+
+
+def _heads(num_heads, tp):
+    """The heads this rank computes: all of them, or under TP its share."""
+    return num_heads if tp is None else num_heads // tp.size
 
 
 def multi_head_attention(params, x, *, num_heads: int, bias=None,
                          causal: bool = False, key_bias=None,
                          lora_scaling: float | None = None,
-                         out_name: str | None = None):
+                         out_name: str | None = None, tp=None):
     """Self-attention over x: [B, N, D] -> [B, N, D].
 
     bias: optional additive bias broadcastable to [B, H, N, N].
     causal / key_bias: the text tower's causal mask and [B, 1, N] f32
     padding bias, kept apart from `bias` so that they run inside the kernel.
+    tp: the model axis (parallel.collectives.ModelAxis) under Megatron TP:
+    this rank computes H / size heads from its q/k/v columns, and the out
+    projection's partial products are summed over the axis.
     """
-    q, k, v = _qkv(params, x, lora_scaling, "qkv")
+    q, k, v = _qkv(params, x, lora_scaling, "qkv", tp)
+    num_heads = _heads(num_heads, tp)
     with named("attn_kernel_out"):
         if bias is None and causal:
             out = kernels.causal_attention(q, k, v, key_bias, num_heads)
@@ -45,12 +60,12 @@ def multi_head_attention(params, x, *, num_heads: int, bias=None,
         else:
             out = kernels.attention_plain(q, k, v, num_heads, causal=causal,
                                           kbias=key_bias, bias=bias)
-    return linear(params["out"], out, lora_scaling=lora_scaling,
-                  name=out_name)
+    return tp_linear(params["out"], out, tp, "row",
+                     lora_scaling=lora_scaling, name=out_name)
 
 
 def short_attention(params, x, *, num_heads: int,
-                    lora_scaling: float | None = None):
+                    lora_scaling: float | None = None, tp=None):
     """Self-attention within each of the M instances of x [M, T, D], T <= 32
     (the video tower's temporal attention over T frames).
 
@@ -58,11 +73,11 @@ def short_attention(params, x, *, num_heads: int,
     block-diagonal mask, and runs a leftover that does not fill a row, or a
     shape the packing does not take, through einsums. The kernel here takes
     the instances as they are, all of them, so none of that is carried
-    over."""
-    q, k, v = _qkv(params, x, lora_scaling, "tqkv")
+    over. `tp` as in multi_head_attention."""
+    q, k, v = _qkv(params, x, lora_scaling, "tqkv", tp)
     with named("tattn_kernel_out"):
-        out = kernels.short_attention(q, k, v, num_heads)
-    return linear(params["out"], out, lora_scaling=lora_scaling)
+        out = kernels.short_attention(q, k, v, _heads(num_heads, tp))
+    return tp_linear(params["out"], out, tp, "row", lora_scaling=lora_scaling)
 
 
 def causal_bias(n: int, dtype=torch.float32, device=None):

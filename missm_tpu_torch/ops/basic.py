@@ -17,6 +17,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from ..parallel.collectives import (copy_to_model, model_rank,
+                                    reduce_from_model)
+
 _NAME = None  # the name of the value the ops now running produce
 _KEEP = None  # the _Keeper of the block running under a named policy
 
@@ -196,6 +199,42 @@ def linear(params, x, *, lora_scaling: float | None = None,
                                  params["lora_b"], params.get("b"),
                                  lora_scaling, name)
     return _product(x, params["w"], params.get("b"), name)
+
+
+def tp_linear(params, x, axis, kind: str, *,
+              lora_scaling: float | None = None, name: str | None = None):
+    """`linear` split over the model axis `axis` (a
+    parallel.collectives.ModelAxis; None runs `linear`), Megatron's layout:
+
+    - kind "col" (q, k, v, fc1): w and b hold this rank's output columns, x
+      is replicated;
+    - kind "row" (out, fc2): w holds this rank's input rows, x its input
+      columns; the partial products (the folded LoRA delta included:
+      x_r (w_r + a_r b s) summed over r is x (w + a b s)) are summed over
+      the ranks before the replicated bias is added.
+
+    The LoRA factors stay replicated, as the JAX package leaves them
+    (missm_tpu/parallel/partitioning.py:46-49); each rank folds its part of
+    the delta, lora_b's columns ("col") or lora_a's rows ("row"). Each
+    factor's gradient on a rank is then only that rank's part of it, so it
+    enters through copy_to_model, whose backward sums it over the axis."""
+    if axis is None:
+        return linear(params, x, lora_scaling=lora_scaling, name=name)
+    p = dict(params)
+    if lora_scaling is not None and "lora_a" in p:
+        a = copy_to_model(p["lora_a"], axis)
+        b = copy_to_model(p["lora_b"], axis)
+        r = model_rank(axis)
+        if kind == "col":
+            b = b.chunk(axis.size, dim=1)[r]
+        else:
+            a = a.chunk(axis.size, dim=0)[r]
+        p.update(lora_a=a, lora_b=b)
+    if kind == "col":
+        return linear(p, x, lora_scaling=lora_scaling, name=name)
+    bias = p.pop("b", None)
+    return reduce_from_model(linear(p, x, lora_scaling=lora_scaling,
+                                    name=name), bias, axis)
 
 
 def _product(x, w, b, name):

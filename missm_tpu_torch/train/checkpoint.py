@@ -12,10 +12,15 @@ and the metadata as `missm_meta.json` beside it, as in the JAX package.
 Loads use `torch.load(..., weights_only=True)`. The format is the port's
 own: it does not read the JAX package's Orbax checkpoints, nor they its.
 
-One process only: the JAX package's cross-process all-gather of sharded
-leaves and its swap barrier belong to the parallel layouts (ROADMAP queue
-1 item 9); a save or restore under a `torch.distributed` group of more than
-one rank raises.
+Across processes (a `torch.distributed` group of more than one rank) the
+tree a save receives is already the full logical tree: the caller gathers
+the FSDP and TP shards and the pipeline stages first
+(parallel.partitioning.Layout.gather, a collective), as the JAX package's
+`_host_value` all-gathers sharded leaves. Rank 0 writes, through its serial
+writer; every rank then meets at a barrier once the write has landed (the
+JAX package's swap barrier), so a restore on any rank, or a one-process
+`cli.test`, reads the whole checkpoint. A restore reads the full tree on
+every rank; the caller re-shards it (Layout.partition).
 """
 from __future__ import annotations
 
@@ -33,14 +38,21 @@ TREE_FILE = "tree.pt"
 META_FILE = "missm_meta.json"
 
 
-def _single_process():
+def _world() -> int:
     dist = torch.distributed
-    if (dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1):
-        raise NotImplementedError(
-            "checkpoints across processes (the JAX package's all-gather and "
-            "swap barrier) are not ported: parallel layouts are ROADMAP "
-            "queue 1 item 9")
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0, or the only one."""
+    return _world() == 1 or torch.distributed.get_rank() == 0
+
+
+def _barrier():
+    if _world() > 1:
+        torch.distributed.barrier()
 
 
 def _host_value(x):
@@ -162,13 +174,18 @@ def _write(path: str, host_tree: Any, metadata: Optional[str]):
 def save_checkpoint(path: str, tree: Any, metadata: Optional[dict] = None):
     """Save a tree + metadata dict at `path` (a directory). Blocks until
     the write lands; routed through the process-wide serial writer, so it
-    lands after every write submitted before it."""
-    _single_process()
-    host_tree = tree_map(_host_value, tree)
-    job = _WRITER.submit(lambda: _write(path, host_tree, _meta_json(metadata)))
-    job.done.wait()
-    if job.err is not None:
-        raise job.err
+    lands after every write submitted before it. Across processes rank 0
+    writes and every rank returns once the write has landed."""
+    err = None
+    if _writes():
+        host_tree = tree_map(_host_value, tree)
+        job = _WRITER.submit(lambda: _write(path, host_tree,
+                                            _meta_json(metadata)))
+        job.done.wait()
+        err = job.err
+    _barrier()
+    if err is not None:
+        raise err
 
 
 class AsyncSaver:
@@ -188,10 +205,15 @@ class AsyncSaver:
     checkpoint; the previous one at `path` stays intact. A process that
     exits (an exception unwinding past the loop) finishes the writes it
     submitted first (_SerialWriter).
+
+    Across processes rank 0 writes, and wait() ends on a barrier of every
+    rank once the write has landed (every rank calls save() and wait() in
+    the same order).
     """
 
     def __init__(self):
         self._job = None
+        self._pending = False
 
     @staticmethod
     def _snapshot(x):
@@ -203,20 +225,28 @@ class AsyncSaver:
         return x
 
     def save(self, path: str, tree: Any, metadata: Optional[dict] = None):
-        _single_process()
-        host_tree = tree_map(self._snapshot, tree)
+        host_tree = tree_map(self._snapshot, tree) if _writes() else None
         meta_json = _meta_json(metadata)  # snapshot now, not at write time
         self.wait()
-        self._job = _WRITER.submit(lambda: _write(path, host_tree, meta_json))
+        self._pending = True
+        if _writes():
+            self._job = _WRITER.submit(lambda: _write(path, host_tree,
+                                                      meta_json))
 
     def wait(self):
         """Block until the in-flight write (if any) lands; re-raise its
         error. Call it before restoring a path this saver wrote."""
+        if not self._pending:
+            return
+        self._pending = False
+        err = None
         if self._job is not None:
             job, self._job = self._job, None
             job.done.wait()
-            if job.err is not None:
-                raise job.err
+            err = job.err
+        _barrier()
+        if err is not None:
+            raise err
 
 
 def _resolve_ckpt_dir(path: str) -> str:
@@ -241,8 +271,8 @@ def read_metadata(path: str) -> Optional[dict]:
 def restore_checkpoint(path: str):
     """(tree, metadata), the tree's tensors on the CPU. The JAX package's
     `like` and `structure` have no counterpart: torch.load rebuilds the
-    saved dicts, lists and tuples as they were, with their dtypes."""
-    _single_process()
+    saved dicts, lists and tuples as they were, with their dtypes. Every
+    rank reads the whole tree."""
     path = _resolve_ckpt_dir(path)
     tree = torch.load(os.path.join(path, TREE_FILE), map_location="cpu",
                       weights_only=True)

@@ -10,9 +10,13 @@ and eval steps:
 - TensorBoard scalars (Loss/train + {loss,accuracy,f1,auc}/val);
 - resume checkpoints every N epochs and on SIGTERM.
 
-One process: under a `torch.distributed` group of more than one rank the
-loop raises (parallel layouts are ROADMAP queue 1 item 9), so the JAX
-package's agreed multi-host stop has no counterpart here.
+Across processes (cfg.parallel, a parallel.partitioning.Layout, with the
+params and the teacher this rank's): each data rank's loaders are its
+shards, the validation pass gathers over the data group, checkpoints
+gather the shards into the full tree that rank 0 writes (and a resume
+re-shards it), rank 0 alone prints, and a SIGTERM on any rank stops every
+rank at the same batch (`_agreed_stop`) before the collective resume
+save.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..eval.sweep import _pad_batch, evaluate_metrics
+from ..eval.sweep import _pad_batch, data_group, evaluate_metrics
 from ..models.finetune import ModelConfig, tree_map
 from ..utils.prefetch import prefetch
 from .checkpoint import AsyncSaver, read_metadata, restore_checkpoint, \
@@ -102,9 +106,63 @@ class _PreemptionGuard:
         return False
 
 
-def _state_tree(state: TrainState, tx) -> dict:
-    return {"params": state.params, "opt_state": tx.state_dict(),
-            "teacher_fusion": state.teacher_fusion, "step": state.step}
+def _full(tree, lay, part=None):
+    """The full tree of this rank's `tree` (a collective under a layout);
+    `part` names the subtree of the specs it is ("fusion" for the
+    teacher)."""
+    if lay is None or tree is None:
+        return tree
+    if part is None:
+        return lay.gather(tree)
+    return lay.gather({part: tree})[part]
+
+
+def _opt_tree(params, tx, lay):
+    """Adam's state as trees shaped like the full params (None where a leaf
+    has none): its moments gathered like their leaves, so a checkpoint
+    written by n ranks restores on any layout."""
+    step = [0.0]
+
+    def moment(key):
+        def get(p):
+            st = tx.state.get(p)
+            if not st:
+                return None
+            step[0] = float(st["step"])
+            return st[key]
+        return tree_map(get, params)
+
+    out = {k: lay.gather(moment(k)) for k in ("exp_avg", "exp_avg_sq")}
+    out["step"] = step[0]
+    return out
+
+
+def _load_opt_tree(params, tx, lay, tree):
+    """Adam's state from `_opt_tree`'s form, cut to this rank's leaves."""
+    avg = lay.partition(tree["exp_avg"])
+    sq = lay.partition(tree["exp_avg_sq"])
+    flat_p, flat_a, flat_s = [], [], []
+    tree_map(flat_p.append, params)
+    tree_map(flat_a.append, avg)
+    tree_map(flat_s.append, sq)
+    for p, a, q in zip(flat_p, flat_a, flat_s):
+        if a is None or not p.requires_grad:
+            continue
+        tx.state[p] = {"step": torch.tensor(float(tree["step"])),
+                       "exp_avg": a.to(p.device, p.dtype).clone(),
+                       "exp_avg_sq": q.to(p.device, p.dtype).clone()}
+
+
+def _state_tree(state: TrainState, tx, lay=None) -> dict:
+    """What a resume checkpoint holds; under a layout the full trees (a
+    collective)."""
+    if lay is None:
+        return {"params": state.params, "opt_state": tx.state_dict(),
+                "teacher_fusion": state.teacher_fusion, "step": state.step}
+    return {"params": _full(state.params, lay),
+            "opt_state": _opt_tree(state.params, tx, lay),
+            "teacher_fusion": _full(state.teacher_fusion, lay, "fusion"),
+            "step": state.step}
 
 
 def _copy_into(dst, src, where="params"):
@@ -132,24 +190,33 @@ def _copy_into(dst, src, where="params"):
             dst.copy_(src)
 
 
-def _restore_loop_state(path: str, state: TrainState, tx):
+def _restore_loop_state(path: str, state: TrainState, tx, lay=None):
     """Restore (TrainState, loop-state dict) from a `checkpoint_every`
     checkpoint written by train_loop, into the freshly built `state` and
     its optimizer `tx`: the params and the teacher in place (same dtypes
     and devices), the optimizer through tx.load_state_dict. `tx` must be
     built over the same trainable leaves in the same order (Adam keys its
-    state by position)."""
+    state by position). Under a layout the full trees are cut to this
+    rank's (Layout.partition)."""
     meta = read_metadata(path)
     if not meta or "loop" not in meta:
         raise ValueError(
             f"checkpoint at {path} has no loop state — only checkpoints "
             "written by train_loop(checkpoint_every=N) are resumable")
     tree, _ = restore_checkpoint(path)
+    if lay is not None:
+        tree = dict(tree, params=lay.partition(tree["params"]))
+        if tree.get("teacher_fusion") is not None:
+            tree["teacher_fusion"] = lay.partition(
+                {"fusion": tree["teacher_fusion"]})["fusion"]
     _copy_into(state.params, tree["params"])
     if state.teacher_fusion is not None:
         _copy_into(state.teacher_fusion, tree["teacher_fusion"],
                    "teacher_fusion")
-    tx.load_state_dict(tree["opt_state"])
+    if lay is None:
+        tx.load_state_dict(tree["opt_state"])
+    else:
+        _load_opt_tree(state.params, tx, lay, tree["opt_state"])
     state = TrainState(params=state.params, opt_state=tx.state,
                        teacher_fusion=state.teacher_fusion,
                        step=int(tree["step"]))
@@ -249,13 +316,11 @@ def train_loop(params, cfg: ModelConfig, train_loader, valid_loader, *,
     The epoch loss is accumulated on the device and read back once per
     `sync_every` steps plus once at epoch end, so the host queues steps
     ahead of the card instead of waiting on each step's loss."""
-    dist = torch.distributed
-    if (dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1):
-        raise NotImplementedError(
-            "train_loop across processes is not ported: parallel layouts "
-            "are ROADMAP queue 1 item 9")
     dev = resolve_device(device)
+    lay = cfg.parallel
+    group = data_group(cfg)
+    if _world() > 1 and torch.distributed.get_rank() != 0:
+        log = _quiet
     state, tx = init_train_state(params, cfg, weight_decay=weight_decay,
                                  teacher_fusion=teacher_fusion)
     step_fn = make_train_step(cfg, tx, accum_steps=accum_steps, device=dev)
@@ -268,11 +333,13 @@ def train_loop(params, cfg: ModelConfig, train_loader, valid_loader, *,
     best_epoch = -1
     bad_epochs = 0
     history = []
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    # a data replica's ranks draw alike; replicas draw apart
+    gen = torch.Generator(device=dev).manual_seed(
+        seed + (lay.data_index if lay is not None else 0))
     batch_size = train_loader.batch_size
     start_epoch = 0
     if resume_from:
-        state, loop_meta = _restore_loop_state(resume_from, state, tx)
+        state, loop_meta = _restore_loop_state(resume_from, state, tx, lay)
         start_epoch = int(loop_meta["epoch"]) + 1
         pl = loop_meta["plateau"]
         # metadata JSON stringifies non-native scalars (default=str):
@@ -308,7 +375,7 @@ def train_loop(params, cfg: ModelConfig, train_loader, valid_loader, *,
             # python stream the datasets' missing-code draws consume)
             gen_epoch_start = gen.get_state()
             py_rand_start = random.getstate()
-            if preempt.check():
+            if _agreed_stop(preempt.check(), dev):
                 # signal landed during the previous epoch's eval/saves: that
                 # epoch completed fully, so the resume is exact
                 preempted = True
@@ -360,7 +427,7 @@ def train_loop(params, cfg: ModelConfig, train_loader, valid_loader, *,
                     float(loss_acc)  # drains the device queue
                 t_in = time.perf_counter()
                 step_s += t_in - t_now
-                stop_mid = preempt.check()
+                stop_mid = _agreed_stop(preempt.check(), dev)
                 if stop_mid:
                     break  # batch-boundary stop; checkpoint below
             if profiler is not None:  # epoch shorter than the trace window
@@ -385,7 +452,8 @@ def train_loop(params, cfg: ModelConfig, train_loader, valid_loader, *,
             step_ms = (step_dev_s if step_dev_s
                        else step_s / max(n_batches, 1)) * 1000
 
-            val = evaluate_metrics(state.params, eval_fn, valid_loader)
+            val = evaluate_metrics(state.params, eval_fn, valid_loader,
+                                   group=group)
             history.append({"epoch": epoch, "train_loss": avg_train_loss,
                             **{f"val_{k}": v for k, v in val.items()},
                             "step_ms": step_ms, "duty": duty,
@@ -417,8 +485,9 @@ def train_loop(params, cfg: ModelConfig, train_loader, valid_loader, *,
                     # write overlaps the next epoch's training
                     saver.save(
                         os.path.join(save_dir, "best_model"),
-                        {"params": state.params,
-                         "opt_state": tx.state_dict()},
+                        {"params": _full(state.params, lay),
+                         "opt_state": (tx.state_dict() if lay is None else
+                                       _opt_tree(state.params, tx, lay))},
                         metadata={"epoch": epoch, "val_metrics": val,
                                   "args": args_metadata or {}})
             else:
@@ -429,7 +498,8 @@ def train_loop(params, cfg: ModelConfig, train_loader, valid_loader, *,
                 # preemption-safe resume point: the full train state + the
                 # loop state a restart needs to continue bit-identically
                 last_saver.save(
-                    os.path.join(save_dir, "last"), _state_tree(state, tx),
+                    os.path.join(save_dir, "last"),
+                    _state_tree(state, tx, lay),
                     metadata={
                         "loop": _loop_meta(epoch, plateau, best_metric,
                                            best_epoch, bad_epochs,
@@ -449,7 +519,8 @@ def train_loop(params, cfg: ModelConfig, train_loader, valid_loader, *,
                 # failure must not block this write (it is the one that
                 # makes the preemption resumable).
                 save_checkpoint(
-                    os.path.join(save_dir, "last"), _state_tree(state, tx),
+                    os.path.join(save_dir, "last"),
+                    _state_tree(state, tx, lay),
                     metadata={
                         "loop": _loop_meta(epoch - 1, plateau, best_metric,
                                            best_epoch, bad_epochs,
@@ -477,7 +548,7 @@ def train_loop(params, cfg: ModelConfig, train_loader, valid_loader, *,
         restored = bool(save_dir) and best_epoch >= 0
         log(f"Loading best model from epoch {best_epoch}" if save_dir
             else "Keeping final-epoch params (no save_dir to restore best from)")
-        best_params = state.params
+        best_params = _full(state.params, lay)
         if restored:
             tree, _ = restore_checkpoint(os.path.join(save_dir, "best_model"))
             best_params = tree["params"]
@@ -492,6 +563,30 @@ def train_loop(params, cfg: ModelConfig, train_loader, valid_loader, *,
                      "best_val_accuracy_seen": best_metric})
             save_checkpoint(final_path, {"params": best_params}, metadata=meta)
         return best_params, history
+
+
+def _world() -> int:
+    dist = torch.distributed
+    return (dist.get_world_size()
+            if dist.is_available() and dist.is_initialized() else 1)
+
+
+def _quiet(*args, **kwargs):
+    """The log of every rank but 0."""
+
+
+def _agreed_stop(local: bool, dev) -> bool:
+    """One rank's SIGTERM flag -> a stop every rank agrees on
+    (missm_tpu/train/loop.py::_agreed_stop): signals land at different
+    times on different ranks, and ranks that broke at different batches
+    would then issue mismatched collectives (the resume save is one). One
+    all-reduce of a flag a batch."""
+    if _world() == 1:
+        return local
+    flag = torch.tensor([1.0 if local else 0.0], device=dev)
+    from ..parallel.collectives import all_reduce
+    return bool(all_reduce(flag, None,
+                           torch.distributed.ReduceOp.MAX).item() > 0)
 
 
 def _start_profiler(dev):

@@ -15,6 +15,18 @@ shares the student's encoder, so only its fusion params are its own
 under `torch.no_grad()`, with every modality present and in eval mode, and
 for MTD_stu the step ends with the EMA update of the teacher's fusion
 params toward the student's (decay 0.999).
+
+Parallel layouts (`cfg.parallel`, a parallel.partitioning.Layout): params
+and the teacher are this rank's (Layout.partition), the batch its rows
+(parallel.shard_batch). Every mean of the loss divides by its count summed
+over the data group (train/losses.py), so the ranks' gradients add up to
+the whole batch's: after the backward, the gradients of the leaves that
+are replicated over data are summed over the data group in one flat
+all-reduce, and the FSDP-sharded ones were reduce-scattered by their
+gather (parallel/collectives.py::gather_shard). Adam then steps on the
+local leaves, so its moments are sharded with them. Under TP and pipe
+nothing more is summed: a replicated leaf's gradient is computed from
+replicated values on every model and pipe rank of a replica.
 """
 from __future__ import annotations
 
@@ -26,7 +38,8 @@ import torch
 from ..core.device import resolve_device
 from ..models.finetune import ModelConfig, model_forward, tree_map
 from .losses import (cross_entropy, kl_distill_loss, masked_kl_distill,
-                     masked_mse_loss, mse_loss, per_sample_cross_entropy)
+                     masked_mse_loss, mse_loss, per_sample_cross_entropy,
+                     total)
 from .trainability import TRAIN, leaves, param_labels
 
 TEACHER_TYPES = ("MTD_stu", "KL_stu")
@@ -86,7 +99,8 @@ def init_train_state(params, cfg: ModelConfig, *, weight_decay: float = 0.0,
 
 
 def compute_loss(params, teacher_fusion, cfg: ModelConfig, data, labels,
-                 missing_index, generator, valid=None, *, device="cuda"):
+                 missing_index, generator, valid=None, *, device="cuda",
+                 group=None):
     """(loss, logits): cross-entropy plus the fusion type's distillation
     term, every term masked to the `valid` rows (a boolean [B] mask of rows
     a fixed-shape batcher did not pad in) when given.
@@ -96,19 +110,20 @@ def compute_loss(params, teacher_fusion, cfg: ModelConfig, data, labels,
     `teacher_fusion`) runs under no_grad with every modality present and in
     eval mode. self_distill: 0.01 times the mean over modalities of the
     masked KL between each present modality's student view and the
-    teacher's features."""
+    teacher's features. With `group` (the data group) every count is the
+    group's (losses.total): this rank's part of the whole batch's loss."""
     ft = cfg.fusion.fusion_type
     logits, aux = model_forward(params, cfg, data, missing_index, train=True,
                                 generator=generator, device=device)
     labels = torch.as_tensor(labels, device=logits.device)
     missing_index = torch.as_tensor(missing_index, device=logits.device)
     if valid is None:
-        ce = cross_entropy(logits, labels)
+        ce = cross_entropy(logits, labels, group)
     else:
         valid = torch.as_tensor(valid, device=logits.device)
         nll = per_sample_cross_entropy(logits, labels)
         w = valid.to(nll.dtype)
-        ce = (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
+        ce = (nll * w).sum() / torch.clamp(total(w.sum(), w, group), min=1.0)
 
     if ft in TEACHER_TYPES:
         with torch.no_grad():
@@ -118,11 +133,12 @@ def compute_loss(params, teacher_fusion, cfg: ModelConfig, data, labels,
                 device=device)
         rep_s, rep_t = aux["features"], tea_aux["features"]
         if valid is None:
-            dl = (mse_loss(rep_s, rep_t) if ft == "MTD_stu"
-                  else kl_distill_loss(rep_s, rep_t))
+            dl = (mse_loss(rep_s, rep_t, group) if ft == "MTD_stu"
+                  else kl_distill_loss(rep_s, rep_t, group=group))
         else:
-            dl = (masked_mse_loss(rep_s, rep_t, valid) if ft == "MTD_stu"
-                  else masked_kl_distill(rep_s, rep_t, valid))
+            dl = (masked_mse_loss(rep_s, rep_t, valid, group)
+                  if ft == "MTD_stu"
+                  else masked_kl_distill(rep_s, rep_t, valid, group=group))
         return dl + ce, logits
 
     if ft == "self_distill":
@@ -133,7 +149,7 @@ def compute_loss(params, teacher_fusion, cfg: ModelConfig, data, labels,
         dl = 0.0
         for i in range(M):
             mask = present[:, i] if valid is None else present[:, i] & valid
-            dl = dl + masked_kl_distill(stu[:, i], tea, mask)
+            dl = dl + masked_kl_distill(stu[:, i], tea, mask, group=group)
         return 0.01 * dl / M + ce, logits
 
     return ce, logits
@@ -172,9 +188,15 @@ def make_train_step(cfg: ModelConfig, tx, accum_steps: int = 1, *,
 
     MTD_stu and KL_stu need `state.teacher_fusion`; MTD_stu ends each step
     with the teacher's EMA update, t = t * 0.999 + s * 0.001 over the
-    fusion params, in place."""
+    fusion params, in place.
+
+    Under `cfg.parallel` the batch is this rank's rows, and its local
+    microbatch i is its part of the global microbatch i (shard_batch's
+    `microbatches`); the loss returned is the whole batch's."""
     dev = resolve_device(device)
     ft = cfg.fusion.fusion_type
+    lay = cfg.parallel
+    group = lay.data_group if lay is not None else None
 
     def step_fn(state: TrainState, data, labels, missing_index, lr,
                 generator, valid=None):
@@ -193,7 +215,7 @@ def make_train_step(cfg: ModelConfig, tx, accum_steps: int = 1, *,
         if accum_steps == 1:
             loss, _ = compute_loss(params, state.teacher_fusion, cfg, data,
                                    labels, missing_index, generator, valid,
-                                   device=dev)
+                                   device=dev, group=group)
             loss.backward()
             loss = loss.detach()
         else:
@@ -209,11 +231,11 @@ def make_train_step(cfg: ModelConfig, tx, accum_steps: int = 1, *,
             w_sum = torch.zeros((), device=dev)
             for i in range(A):
                 sl = slice(i * h, (i + 1) * h)
-                w = valid[sl].sum().float()
+                w = total(valid[sl].sum().float(), valid, group)
                 loss, _ = compute_loss(params, state.teacher_fusion, cfg,
                                        _rows(data, sl), labels[sl],
                                        missing_index[sl], generator,
-                                       valid[sl], device=dev)
+                                       valid[sl], device=dev, group=group)
                 (w * loss).backward()
                 l_sum = l_sum + w * loss.detach()
                 w_sum = w_sum + w
@@ -227,8 +249,11 @@ def make_train_step(cfg: ModelConfig, tx, accum_steps: int = 1, *,
         for p in train:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        for group in tx.param_groups:
-            group["lr"] = lr
+        if group is not None:
+            loss = total(loss, loss, group)
+            _sum_replicated_grads(state.params, lay, group)
+        for pg in tx.param_groups:
+            pg["lr"] = lr
         tx.step()
         if ft == "MTD_stu":
             with torch.no_grad():
@@ -238,6 +263,28 @@ def make_train_step(cfg: ModelConfig, tx, accum_steps: int = 1, *,
                           step=state.step + 1), {"loss": loss}
 
     return step_fn
+
+
+def _sum_replicated_grads(params, lay, group):
+    """The gradients of the trainable leaves that are replicated over the
+    data axis, summed over `group` in one flat all-reduce a dtype (the FSDP
+    shards' were reduce-scattered by their gather)."""
+    from ..core.mesh import DATA_AXIS
+    from ..parallel.collectives import all_reduce
+    from ..parallel.partitioning import zip_map
+
+    grads = []
+
+    def pick(p, spec):
+        if p.requires_grad and p.grad is not None and DATA_AXIS not in spec:
+            grads.append(p.grad)
+
+    zip_map(pick, params, lay.local_specs)
+    for dt in {g.dtype for g in grads}:
+        same = [g for g in grads if g.dtype == dt]
+        flat = all_reduce(torch.cat([g.reshape(-1) for g in same]), group)
+        for g, part in zip(same, flat.split([g.numel() for g in same])):
+            g.copy_(part.view_as(g))
 
 
 def make_eval_step(cfg: ModelConfig, *, device="cuda"):

@@ -321,13 +321,28 @@ def test_old_dir_is_recovered_and_a_new_write_replaces_it(tmp_path):
 
 
 def test_checkpoints_refuse_more_than_one_process(tmp_path, monkeypatch):
+    """Across processes rank 0 alone writes, and every save ends on a
+    barrier of all ranks (the JAX package's swap barrier); a restore reads
+    the whole tree on any rank. Ranks 1 and 0 of a world of 2, one after
+    the other, with the barrier counted."""
+    barriers = []
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    for call in (lambda: ck.save_checkpoint(str(tmp_path / "a"), {}),
-                 lambda: ck.AsyncSaver().save(str(tmp_path / "b"), {}),
-                 lambda: ck.restore_checkpoint(str(tmp_path / "c"))):
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            call()
+    monkeypatch.setattr(torch.distributed, "barrier",
+                        lambda: barriers.append(1))
+    tree = {"x": torch.arange(3.0)}
+    for rank in (1, 0):
+        monkeypatch.setattr(torch.distributed, "get_rank", lambda r=rank: r)
+        a, b = str(tmp_path / f"a{rank}"), str(tmp_path / f"b{rank}")
+        ck.save_checkpoint(a, tree, metadata={"rank": rank})
+        saver = ck.AsyncSaver()
+        saver.save(b, tree)
+        saver.wait()
+        saver.wait()  # nothing in flight: no second barrier
+        assert os.path.isdir(a) == os.path.isdir(b) == (rank == 0)
+    assert len(barriers) == 4
+    got, meta = ck.restore_checkpoint(str(tmp_path / "a0"))
+    assert torch.equal(got["x"], tree["x"]) and meta == {"rank": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -154,12 +154,28 @@ def test_artifact_equals_predictor_and_jax_artifact(ftype, tmp_path):
                                                "dtype": "uint8"}
 
 
+class _DataMesh:
+    """A mesh stand-in with a data axis of 3 (the check raises before any
+    collective)."""
+    mesh_dim_names = ("data", "model")
+
+    def size(self, i):
+        return 3 if i == 0 else 1
+
+
 def test_artifact_rejects_what_it_cannot_serve(tmp_path):
+    """A multi-device artifact needs a batch that its data axis divides,
+    and as many ranks to serve it as it was exported for (JAX's
+    messages); a batch past the artifact's size raises."""
+    import json
+    import os
+
     _, tcfg = _configs("sum")
     params = tft.init_model_params(tcfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(ValueError, match="batch 4 not divisible by the "
+                                         "mesh's data axis 3"):
         tartifact.export_artifact(params, tcfg, _data(0), str(tmp_path),
-                                  mesh=object(), device="cpu")
+                                  mesh=_DataMesh(), device="cpu")
     tartifact.export_artifact(params, tcfg, _data(0), str(tmp_path),
                               device="cpu")
     art = tartifact.load_artifact(str(tmp_path), device="cpu")
@@ -168,6 +184,15 @@ def test_artifact_rejects_what_it_cannot_serve(tmp_path):
            "image": np.concatenate([_data(0)["image"]] * 2)}
     with pytest.raises(ValueError, match="batch_size 4"):
         art.predict_arrays(big)
+    manifest = os.path.join(str(tmp_path), tartifact.MANIFEST_FILE)
+    with open(manifest) as f:
+        m = json.load(f)
+    assert m["num_devices"] == 1 and m["data_axis"] == "data"
+    with open(manifest, "w") as f:
+        json.dump(dict(m, num_devices=2), f)
+    with pytest.raises(ValueError, match="exported for 2 devices; only 1 "
+                                         "available"):
+        tartifact.load_artifact(str(tmp_path), device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,9 @@ import pytest
 import torch
 
 from missm_tpu_torch.cli.export import main as export_main
+from missm_tpu_torch.cli.common import maybe_init_distributed
+from missm_tpu_torch.compat.args import train_args
+from missm_tpu_torch.parallel.dryrun import dryrun
 from missm_tpu_torch.compat.from_jax import from_jax
 from missm_tpu_torch.core.config import tiny_tower
 from missm_tpu_torch.data.preprocess import make_media_loaders
@@ -109,7 +112,8 @@ def _cfg():
                                    "from_jax", "make_media_loaders",
                                    "image_transform", "audio_model_input",
                                    "export_artifact", "load_artifact",
-                                   "cli.export"])
+                                   "cli.export", "parallel.dryrun",
+                                   "maybe_init_distributed"])
 def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch,
                                                                 tmp_path,
                                                                 entry):
@@ -139,6 +143,9 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch,
             "--datasetName", "mvsa", "--csv_path", str(tmp_path / "x.csv"),
             "--modality_types", "language", "image", "--model_scale",
             "tiny", "--hash_tokenizer"]),
+        "parallel.dryrun": lambda: dryrun(4),
+        "maybe_init_distributed": lambda: maybe_init_distributed(
+            train_args(["--distributed", "10.0.0.1:1234,2,0"])),
     }
     if entry == "load_artifact":  # a CPU artifact, asked for on the card
         export_artifact(params, cfg, data, str(tmp_path / "art"),
@@ -149,6 +156,16 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch,
     logits, _ = finetune.model_forward(params, cfg, data,
                                        np.zeros(2, np.int32), device="cpu")
     assert logits.shape == (2, 3) and torch.isfinite(logits).all()
+
+
+def test_make_mesh_defaults_to_the_card():
+    """The mesh is built for the card unless the caller names the CPU (the
+    tests' gloo worlds pass device_type="cpu")."""
+    import inspect
+
+    from missm_tpu_torch.core.mesh import make_mesh
+    assert inspect.signature(make_mesh).parameters[
+        "device_type"].default == "cuda"
 
 
 @pytest.mark.parametrize("modality", ["image", "depth", "audio"])

@@ -219,12 +219,43 @@ def test_resume_requires_loop_state(tree, tmp_path):
              resume_from=path)
 
 
-def test_train_loop_refuses_more_than_one_process(tree, monkeypatch):
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    cfg = _cfg()
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        _run(_params(cfg), cfg, _loaders(tree), None, num_epochs=1)
+def test_train_loop_refuses_more_than_one_process(tmp_path):
+    """train_loop across processes (DP over 2 gloo ranks, each its shard of
+    13 rows): a SIGTERM on rank 1 alone, mid-epoch, stops both ranks at
+    the same batch (`_agreed_stop`; a rank that broke at another batch
+    would leave its peer's collectives waiting until the world's timeout)
+    before the collective resume save, which rank 0 writes; `--resume`
+    then runs both ranks to the end, their params equal."""
+    from missm_tpu_torch.compat.from_jax import to_numpy
+    from missm_tpu_torch.models.finetune import init_model_params
+    from tests.torch_parallel_cases import model_config, numpy_batch
+    from tests.torch_world import run_world
+
+    fusion = dict(fusion_type="sum", modality_types=("language", "image"),
+                  output_dims=3, feature_dims=24, fusion_dim=16,
+                  dropout_prob=0.1)
+    towers = ("image",)
+    tree = to_numpy(init_model_params(model_config(towers, fusion),
+                                      device="cpu"))
+    kw = dict(tree=tree, batch=numpy_batch(13, 16, modalities=towers),
+              towers=towers, fusion=fusion, save_dir=str(tmp_path / "run"))
+    first = run_world(2, "tests.torch_parallel_cases:loop_case", tmp_path,
+                      sigterm_at=(1, 0, 1), **kw)
+    assert [r["end"] for r in first] == ["preempted", "preempted"]
+    assert first[0]["meta"] == first[1]["meta"]
+    assert first[0]["meta"]["epoch"] == 0
+    assert first[0]["meta"]["batches_done"] in (1, 2)
+    done = run_world(2, "tests.torch_parallel_cases:loop_case", tmp_path,
+                     resume=True, **kw)
+    assert [r["end"] for r in done] == ["done", "done"]
+    assert done[0]["epochs"] == done[1]["epochs"] == 2
+
+    def flat(t, out):
+        for v in t.values():
+            flat(v, out) if isinstance(v, dict) else out.append(v)
+        return out
+    for a, b in zip(flat(done[0]["params"], []), flat(done[1]["params"], [])):
+        np.testing.assert_array_equal(a, b)
 
 
 # ---------------------------------------------------------------------------

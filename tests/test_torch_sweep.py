@@ -196,13 +196,46 @@ def test_evaluate_loader_shard_real_count_matches_jax(model, real):
     _assert_loader_outputs(got, want)
 
 
-def test_evaluate_loader_refuses_several_processes(model, monkeypatch):
-    _, _, tree, _, tev = model
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tsweep.evaluate_loader(from_jax(tree, device="cpu"), tev,
-                               ListLoader(*_arrays(2, 0), batch_size=2))
+def test_evaluate_loader_refuses_several_processes(model, tmp_path):
+    """Across processes evaluate_loader gathers (the JAX package's
+    multi-host branch, tests/test_three_process.py): 13 rows on 3 gloo
+    ranks at 2 rows a rank-batch, each rank its BatchLoader-style shard
+    (shards 1 and 2 end in wrap-around duplicates, and the last batch of
+    both holds nothing real). Exactly the 13 rows come back, each once,
+    as JAX's one-process evaluate_loader at the global batch of 6 gives
+    them; the last batch's loss is the one real row's; and the concat_mean
+    statistics are one process's."""
+    from tests.torch_world import run_world
+
+    _, tcfg, tree, jev, tev = model
+    data, labels, missing = _arrays(13, 5)
+    res = run_world(3, "tests.torch_parallel_cases:eval_case", tmp_path,
+                    tree=tree, batch=(data, labels, missing),
+                    towers=("image",), fusion=FUSION, batch_size=2)
+    want = jsweep.evaluate_loader(_jparams(tree), jev,
+                                  ListLoader(data, labels, missing, 6))
+    # gathered rank by rank: batch k holds rank r's rows (2k + j) * 3 + r
+    order = [(2 * k + j) * 3 + r for k in range(3) for r in range(3)
+             for j in range(2) if (2 * k + j) * 3 + r < 13]
+    assert sorted(order) == list(range(13))
+    for r in res:
+        losses, got_labels, preds, probs = (r["losses"], r["labels"],
+                                            r["preds"], r["probs"])
+        assert len(got_labels) == 13
+        np.testing.assert_array_equal(got_labels, labels[order])
+        np.testing.assert_array_equal(preds, np.asarray(want[2])[order])
+        np.testing.assert_allclose(probs, np.asarray(want[3])[order],
+                                   rtol=0, atol=PROB_ATOL)
+        np.testing.assert_allclose(losses, want[0], rtol=LOSS_RTOL)
+        # the last batch: the single real row (12)'s nll
+        nll = -np.log(np.asarray(want[3])[12, labels[12]])
+        assert losses[-1] == pytest.approx(nll, rel=LOSS_RTOL)
+        one = tsweep.statistics_pass(from_jax(tree, device="cpu"), tcfg,
+                                     ListLoader(data, labels, missing, 4),
+                                     "mean", device="cpu")
+        for m, v in one.items():
+            np.testing.assert_allclose(r["stats"][m], v, rtol=0,
+                                       atol=STAT_ATOL)
 
 
 def test_evaluate_metrics_matches_jax(model):
