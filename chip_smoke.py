@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port (missm_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile] [--only parallel]
+    python3 chip_smoke.py [--profile] [--only parallel|cli]
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. device   - needs a CUDA GPU; prints its name and power limit.
@@ -168,7 +168,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
                 f32, TF32 off) reproduces the reference towers' features
                 within 5e-5 + 2e-4 |ref|. Prints each epoch's samples/s and
                 duty, each checkpoint write's seconds and size and the
-                sweep's rows/s.
+                sweep's rows/s. Then cli.predict --distributed from
+                the final model on two ranks sharing the card over gloo
+                (`python3 chip_smoke.py --predict-rank` processes), under
+                DP 2 and then --mesh_model 2: each rank K1 24 and K2(a) 12
+                a batch of its shard, rank 0's predictions.csv against the
+                one-process run's (confidences within 1e-2, preds equal
+                wherever the top-2 margin exceeds that), rows/s and each
+                rank's peak; --uint8_upload true: one cli.train epoch
+                against the first run's first epoch (the same launches,
+                every batch dequantized by the model, the first step's loss
+                within 2e-2 relative), the cli.test sweep of the mixed
+                type with the flag and then without (rows/s of each), and
+                the loaders' uint8 batch of 16 images on the card,
+                dequantized, within 0.5/255/min(std) + 1e-4 of the f32
+                batch (both loaders timed in turns).
  15. remat    - the named remat policies (models/tower.py::REMAT_POLICIES):
                 the flagship train step (4 x 16) under bench.py's
                 save_attn_mlp_qkv_kern, K1 96 (every one writing the
@@ -305,13 +319,25 @@ CLI_SCALE = "large"
 CLI_BATCH = 16
 CLI_CHILD_TIMEOUT = 600                 # s, each cli.train subprocess
 CONVERT_TOL = dict(atol=5e-5, rtol=2e-4)
+# --uint8_upload: the first step's bf16 loss against the f32 upload's
+# (GRAD_TOL's bf16 bound; the rounding moves an input by at most 0.5/255 of
+# its range, under bf16's own rounding of the normalised input)
+U8_LOSS_RTOL = 2e-2
+PREDICT_CONF_ATOL = 1e-2                # cli.predict over ranks, bf16
+PREDICT_LAYOUTS = {"DP 2": [], "TP 2": ["--mesh_model", "2"]}
 COVERS.update({
     "cli train": 2 * (DATA_SPLITS["train"] // CLI_BATCH
                       + DATA_SPLITS["valid"] // CLI_BATCH),
     "cli resume": (DATA_SPLITS["train"] // CLI_BATCH
                    + DATA_SPLITS["valid"] // CLI_BATCH),
     "cli test": 30 * -(-DATA_SPLITS["test"] // 64),
-    "cli predict": -(-DATA_SPLITS["test"] // 64)})
+    "cli predict": -(-DATA_SPLITS["test"] // 64),
+    # one uint8 epoch; the mixed type's sweep; both ranks' batches
+    "cli train --uint8_upload": (DATA_SPLITS["train"] // CLI_BATCH
+                                 + DATA_SPLITS["valid"] // CLI_BATCH),
+    "cli test --uint8_upload": 10 * -(-DATA_SPLITS["test"] // 64),
+    "cli predict DP 2": 2 * -(-(DATA_SPLITS["test"] // 2) // 32),
+    "cli predict TP 2": 2 * -(-DATA_SPLITS["test"] // 64)})
 # remat: bench.py's train policy and train3 spec (bench.py:142, 208-210);
 # a named policy's gradients against no remat's on the card, f32 without
 # TF32: the same kernels on the same inputs, so only a changed summation
@@ -2652,6 +2678,50 @@ def lse_launches(counts):
         K._launch = real
 
 
+@contextlib.contextmanager
+def first_losses(log):
+    """The loss of each train loop's first step (train/loop.py's step_fn),
+    appended to `log` as a tensor: read later, so nothing waits on the
+    card."""
+    from missm_tpu_torch.train import loop
+
+    real = loop.make_train_step
+
+    def make(*a, **kw):
+        step, first = real(*a, **kw), []
+
+        def step_fn(*sa, **skw):
+            out = step(*sa, **skw)
+            if not first:
+                first.append(True)
+                log.append(out[1]["loss"])
+            return out
+        return step_fn
+    loop.make_train_step = make
+    try:
+        yield log
+    finally:
+        loop.make_train_step = real
+
+
+@contextlib.contextmanager
+def dequantized(counts):
+    """Counts the uint8 media batches the model dequantizes
+    (models/finetune.py::_dequantize) in counts["u8"]."""
+    from missm_tpu_torch.models import finetune
+
+    real = finetune._dequantize
+
+    def deq(x, dtype):
+        counts["u8"] += 1
+        return real(x, dtype)
+    finetune._dequantize = deq
+    try:
+        yield counts
+    finally:
+        finetune._dequantize = real
+
+
 def cli_argv(csv, dev, *extra):
     return ["--datasetName", "mvsa", "--csv_path", csv, "--model_scale",
             CLI_SCALE, "--hash_tokenizer", "--fusion_type", "sum",
@@ -2812,6 +2882,261 @@ def cli_converter(dev, card):
           + f" (limit {CONVERT_TOL}) [{card}]", flush=True)
 
 
+@contextlib.contextmanager
+def kept_probs():
+    """Yields a list that receives the probs of each Predictor.predict
+    call."""
+    from missm_tpu_torch.eval.predictor import Predictor
+
+    real, kept = Predictor.predict, []
+
+    def predict(self, *a, **kw):
+        preds, probs = real(self, *a, **kw)
+        kept.append(probs)
+        return preds, probs
+    Predictor.predict = predict
+    try:
+        yield kept
+    finally:
+        Predictor.predict = real
+
+
+def predict_rank(spec: dict, rank: int) -> dict:
+    """One rank of the cli phase's cli.predict world (cli_predict_ranks):
+    joins the gloo group on the card, then runs `python -m
+    missm_tpu_torch.cli.predict --distributed true ...` of each layout in
+    turn; returns each run's launches, seconds and peak memory."""
+    import datetime
+
+    import torch.distributed as dist
+    from missm_tpu_torch.cli import predict as cli_predict
+    from missm_tpu_torch.kernels import attention as K
+
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(spec["backend"], init_method=spec["init"],
+                            rank=rank, world_size=spec["world"],
+                            timeout=datetime.timedelta(seconds=PAR_TIMEOUT))
+    os.chdir(spec["cwd"])
+    out = {}
+    try:
+        for name, argv in spec["runs"]:
+            K.reset_launches()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            cli_predict.main(argv)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            out[name] = {
+                "rank": rank, "seconds": time.perf_counter() - t0,
+                "launches": dict(K.LAUNCHES),
+                "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                             if dev.type == "cuda" else 0.0)}
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def cli_predict_ranks(dev, run, pargv, one, one_probs, n_vision, n_text,
+                      card):
+    """cli.predict --distributed from the phase's final model on two ranks
+    sharing the card over gloo (NCCL refuses two ranks on one device),
+    under each layout of PREDICT_LAYOUTS in turn in one world: each rank
+    predicts its data shard, K1 and K2(a) exact a rank, and rank 0's
+    predictions.csv against the one-process run's `one` (index and label
+    equal, confidences within PREDICT_CONF_ATOL, preds equal wherever the
+    one-process top-2 margin exceeds it). Returns the launches."""
+    import pandas as pd
+
+    rows = len(one)
+    runs = [[name, pargv[:pargv.index("--output")] + flags + [
+        "--output", f"pred_{name.replace(' ', '_')}.csv",
+        "--distributed", "true"]] for name, flags in PREDICT_LAYOUTS.items()]
+    res = par_world("cli predict", dict(
+        world=2, backend="gloo", device=dev.type, cwd=run, runs=runs), run,
+        card, mode="--predict-rank")
+    top2 = np.sort(one_probs, axis=1)[:, -2:]
+    margin = top2[:, 1] - top2[:, 0]
+    launches = {}
+    for name, argv in runs:
+        per = [r[name] for r in res]
+        # round_eval_batch: the global batch over the data axis
+        n_data = 2 if name.startswith("DP") else 1
+        rank_batch = int(argv[argv.index("--batch_size") + 1]) // n_data
+        shard = -(-rows // n_data)
+        batches = -(-shard // rank_batch)
+        want = {"attention": n_vision * batches,
+                "causal_attention": n_text * batches}
+        got = pd.read_csv(argv[argv.index("--output") + 1])
+        conf = np.abs(got["confidence"].to_numpy()
+                      - one["confidence"].to_numpy())
+        differ = got["pred"].to_numpy() != one["pred"].to_numpy()
+        near = margin <= PREDICT_CONF_ATOL
+        rate = rows / max(r["seconds"] for r in per)
+        RATES[f"cli predict {name}"] = rate
+        print(f"cli predict {name} (smoke reading): {rows} rows on 2 ranks "
+              f"in {max(r['seconds'] for r in per):.2f} s = {rate:.2f} "
+              f"rows/s (the process's restore and loaders included), peaks "
+              f"{[round(r['peak_gib'], 3) for r in per]} GiB, launches a "
+              f"rank {[r['launches'] for r in per]} (expected {want}); "
+              f"against one process: confidence max |diff| "
+              f"{conf.max():.2e} (limit {PREDICT_CONF_ATOL}), "
+              f"{int(differ.sum())} preds differ, all among the "
+              f"{int(near.sum())} rows whose top-2 margin is within "
+              f"{PREDICT_CONF_ATOL} [{card}]", flush=True)
+        if not (len(got) == rows
+                and np.array_equal(got["index"], one["index"])
+                and np.array_equal(got["label"], one["label"])
+                and conf.max() <= PREDICT_CONF_ATOL
+                and not (differ & ~near).any()):
+            raise AssertionError(f"cli predict {name}: the two ranks' rows "
+                                 "disagree with one process's")
+        for r in per:
+            check_launches(f"cli predict {name} rank {r['rank']}",
+                           r["launches"], want)
+        launches[f"cli predict {name}"] = {
+            k: sum(r["launches"].get(k, 0) for r in per)
+            for k in per[0]["launches"]}
+    return launches
+
+
+def cli_uint8(dev, root, csv, card, n_vision, n_text, f32_hist, loss0_f32,
+              targv, f32_sweep_rate):
+    """--uint8_upload true through the entry points: one cli.train epoch
+    (its own working directory, the phase's argv at 1 epoch) against the
+    phase's first run (`f32_hist`, with `loss0` its first step's loss):
+    the same launches, every batch dequantized by the model, the first
+    step's loss within U8_LOSS_RTOL; the cli.test sweep of `targv`'s mixed
+    type on the phase's final model, with the flag and then without; and
+    the loaders' uint8 batch of 16 images on the card, dequantized, within
+    0.5/255/min(std) + 1e-4 of the f32 batch (tests/test_uint8_upload.py's
+    bound), the two loaders timed in turns. Returns the launches."""
+    from missm_tpu_torch.cli import test as cli_test
+    from missm_tpu_torch.cli import train as cli_train
+    from missm_tpu_torch.cli.common import build_model_config
+    from missm_tpu_torch.compat.args import train_args
+    from missm_tpu_torch.data.preprocess import make_media_loaders
+    from missm_tpu_torch.kernels import attention as K
+    from missm_tpu_torch.models import finetune
+    from missm_tpu_torch.ops.image_transforms import OPENAI_STD
+
+    paths = {}
+    here = os.getcwd()
+    u8run = os.path.join(root, "u8run")
+    os.makedirs(u8run)
+    os.chdir(u8run)
+    try:
+        argv = cli_argv(csv, dev, "--init", "random", "--batch_size",
+                        str(CLI_BATCH), "--num_epochs", "1", "--seed", "0",
+                        "--uint8_upload", "true")
+        steps = DATA_SPLITS["train"] // CLI_BATCH
+        val = DATA_SPLITS["valid"] // CLI_BATCH
+        writes, lse, loss0, deq = [], {"lse": 0}, [], {"u8": 0}
+        K.reset_launches()
+        with checkpoint_writes(writes), lse_launches(lse), \
+                first_losses(loss0), dequantized(deq):
+            _, hist = cli_train.main(argv)
+        paths["cli train --uint8_upload"] = launches = dict(K.LAUNCHES)
+        check_launches("cli train --uint8_upload", launches,
+                       cli_train_expect(n_vision, n_text, steps, val),
+                       lse["lse"], n_vision * 2 * steps)
+        train_report("cli train --uint8_upload", hist, writes, card)
+    finally:
+        os.chdir(here)
+    u8_loss0, f32_loss0 = float(loss0[0]), loss0_f32
+
+    def rate(h):
+        return h["n_batches"] * CLI_BATCH / (h["input_s"] + h["step_s"])
+    print(f"cli --uint8_upload train (smoke reading): first step's loss "
+          f"{u8_loss0:.6f} against the f32 upload's {f32_loss0:.6f} "
+          f"(|diff| {abs(u8_loss0 - f32_loss0):.2e}, limit "
+          f"{U8_LOSS_RTOL} relative); its epoch {rate(hist[0]):.2f} "
+          f"samples/s against the f32 run's epochs "
+          f"{', '.join(f'{rate(h):.2f}' for h in f32_hist)} (its first the "
+          f"process's first, cold); {deq['u8']} uint8 batches dequantized "
+          f"by the model (expected {steps + val}) [{card}]", flush=True)
+    if not (math.isfinite(u8_loss0) and len(hist) == 1
+            and math.isfinite(hist[0]["train_loss"])
+            and abs(u8_loss0 - f32_loss0) <= U8_LOSS_RTOL * abs(f32_loss0)
+            and deq["u8"] == steps + val):
+        raise AssertionError(f"cli train --uint8_upload: loss {u8_loss0} "
+                             f"against {f32_loss0}, history {hist}, "
+                             f"{deq['u8']} batches dequantized")
+
+    # --- the sweep on the phase's final model, the mixed missing type's
+    # 10 loaders with the flag and then without it, in turn
+    mixed = targv[:targv.index("--test_missing_type") + 1] + ["mixed"] + \
+        targv[targv.index("--batch_size"):]
+    batches = 10 * -(-DATA_SPLITS["test"] // 64)
+    rows, sweep = 10 * DATA_SPLITS["test"], {}
+    for q in (True, False):
+        deq = {"u8": 0}
+        K.reset_launches()
+        t0 = time.perf_counter()
+        with dequantized(deq):
+            results = cli_test.main(mixed + ["--uint8_upload", str(q).lower()])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        if q:
+            paths["cli test --uint8_upload"] = launches
+        check_launches(f"cli test --uint8_upload {str(q).lower()}", launches,
+                       {"attention": n_vision * batches,
+                        "causal_attention": n_text * batches})
+        numbers = [m[k] for m in results["sum"]["mixed"].values()
+                   for k in ("loss", "accuracy")]
+        sweep[q] = (rows / dt, results["sum"]["mixed"])
+        if deq["u8"] != (batches if q else 0) or not all(
+                math.isfinite(x) for x in numbers):
+            raise AssertionError(f"cli test --uint8_upload {q}: "
+                                 f"{deq['u8']} batches dequantized of "
+                                 f"{batches}, {numbers}")
+    print(f"cli --uint8_upload test (smoke reading): the mixed type's "
+          f"{rows} rows ({batches} batches, each dequantized) "
+          f"{sweep[True][0]:.2f} rows/s, then without the flag "
+          f"{sweep[False][0]:.2f} (the process's setup and the checkpoint "
+          f"load included; the full f32 sweep before them "
+          f"{f32_sweep_rate:.2f}); accuracy by ratio with / without "
+          + "; ".join(f"{r}: {m['accuracy']:.4f} / "
+                      f"{sweep[False][1][r]['accuracy']:.4f}"
+                      for r, m in sweep[True][1].items())
+          + f" [{card}]", flush=True)
+
+    # --- the loaders' batch on the card, dequantized; timed in turns
+    tower = build_model_config(train_args(argv), 10).tower_dict
+    imgs = [os.path.join(os.path.dirname(csv), "data", f"{i}.jpg")
+            for i in range(16)]
+    load = {q: make_media_loaders(tower, quantized=q, device=dev)["image"]
+            for q in (True, False)}
+    batch = {q: torch.stack([load[q](p) for p in imgs]) for q in load}
+    ms = {True: [], False: []}
+    for q in (True, False, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.stack([load[q](p) for p in imgs])
+        torch.cuda.synchronize()
+        ms[q].append((time.perf_counter() - t0) * 1000 / len(imgs))
+    u8, f32 = batch[True], batch[False]
+    err = float((finetune._dequantize(u8, torch.float32) - f32).abs().max())
+    limit = 0.5 / 255 / min(OPENAI_STD) + 1e-4
+    print(f"cli --uint8_upload loaders: a batch of {len(imgs)} images "
+          f"{u8.dtype} {tuple(u8.shape)} on {u8.device} "
+          f"({u8.numel() * u8.element_size() / 2**20:.2f} MiB against "
+          f"{f32.numel() * f32.element_size() / 2**20:.2f} MiB of f32), "
+          f"dequantized within {err:.2e} of the f32 batch (limit "
+          f"{limit:.2e}); decode + transform ms a sample in turns "
+          f"{ms[True][0]:.3f}, {ms[False][0]:.3f}, {ms[False][1]:.3f}, "
+          f"{ms[True][1]:.3f} (uint8, f32, f32, uint8) [{card}]", flush=True)
+    if not (u8.dtype == torch.uint8 and u8.device.type == dev.type
+            and u8.shape == f32.shape and err <= limit):
+        raise AssertionError(f"cli --uint8_upload loaders: {u8.dtype} "
+                             f"{tuple(u8.shape)}, error {err}")
+    return paths
+
+
 def cli_phase(dev, rng, card, profile):
     """The entry points on the card (missm_tpu_torch.cli), from the data
     phase's mvsa tree written anew to a temporary directory that is the
@@ -2852,10 +3177,11 @@ def cli_phase(dev, rng, card, profile):
             n_vision, n_text = layers(cfg)
             steps = DATA_SPLITS["train"] // CLI_BATCH
             val = DATA_SPLITS["valid"] // CLI_BATCH
-            writes, lse = [], {"lse": 0}
+            writes, lse, loss0 = [], {"lse": 0}, []
             K.reset_launches()
             t0 = time.perf_counter()
-            with checkpoint_writes(writes), lse_launches(lse):
+            with checkpoint_writes(writes), lse_launches(lse), \
+                    first_losses(loss0):
                 best, hist = cli_train.main(argv)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
@@ -2961,6 +3287,7 @@ def cli_phase(dev, rng, card, profile):
             numbers = [float(line.rsplit(": ", 1)[1]) for b in blocks
                        for line in b.splitlines()[2:]]
             rows = 30 * DATA_SPLITS["test"]
+            sweep_rate = rows / dt
             print(f"cli test (smoke reading): {len(blocks)} report blocks, "
                   f"{rows} rows ({batches} batches) in {dt:.4f} s = "
                   f"{rows / dt:.2f} rows/s, the process's setup and the "
@@ -2979,7 +3306,8 @@ def cli_phase(dev, rng, card, profile):
                              "test", "--output", "predictions.csv")
             K.reset_launches()
             t0 = time.perf_counter()
-            out = cli_predict.main(pargv)
+            with kept_probs() as one_probs:
+                out = cli_predict.main(pargv)
             dt = time.perf_counter() - t0
             paths["cli predict"] = launches = dict(K.LAUNCHES)
             pbatches = -(-DATA_SPLITS["test"] // 64)
@@ -3018,6 +3346,15 @@ def cli_phase(dev, rng, card, profile):
                     and np.abs(probs.sum(-1) - 1).max() <= 1e-5):
                 raise AssertionError("cli predict: rows, labels or the "
                                      "from_checkpoint forward")
+            del pred, tree
+
+            # --- cli.predict over two ranks, then --uint8_upload
+            torch.cuda.empty_cache()
+            paths.update(cli_predict_ranks(dev, run, pargv, out,
+                                           one_probs[0], n_vision, n_text,
+                                           card))
+            paths.update(cli_uint8(dev, root, csv, card, n_vision, n_text,
+                                   hist, float(loss0[0]), targv, sweep_rate))
         finally:
             os.chdir(cwd)
     cli_converter(dev, card)
@@ -3859,10 +4196,11 @@ def par_layout(spec, rank, dev, cfg, params, layout, ref) -> dict:
     return out
 
 
-def par_world(name, spec, tmp, card):
-    """`spec["world"]` ranks of par_rank, each a `python3 chip_smoke.py
-    --parallel-rank` process on the card; returns their results. A rank
-    that fails or hangs fails the phase."""
+def par_world(name, spec, tmp, card, mode="--parallel-rank"):
+    """`spec["world"]` ranks of par_rank (predict_rank with `mode`
+    --predict-rank), each a `python3 chip_smoke.py <mode>` process on the
+    card; returns their results. A rank that fails or hangs fails the
+    phase."""
     here = os.path.abspath(__file__)
     spec = dict(spec, init="file://" + os.path.join(
         tmp, f"rdv_{name.replace(' ', '_')}"))
@@ -3872,7 +4210,7 @@ def par_world(name, spec, tmp, card):
     logs = [open(os.path.join(tmp, f"{name.replace(' ', '_')}_{r}.log"),
                  "w+") for r in range(spec["world"])]
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([sys.executable, here, "--parallel-rank", path,
+    procs = [subprocess.Popen([sys.executable, here, mode, path,
                                str(r)], stdout=logs[r],
                               stderr=subprocess.STDOUT)
              for r in range(spec["world"])]
@@ -3894,7 +4232,8 @@ def par_world(name, spec, tmp, card):
         raise AssertionError(f"parallel {name}: ranks {bad} failed:\n"
                              + "\n".join(text[r][-4000:] for r in bad))
     res = [json.loads(t.strip().splitlines()[-1]) for t in text]
-    print(f"parallel {name}: {spec['world']} rank(s) over "
+    print(f"{'parallel ' * (mode == '--parallel-rank')}{name}: "
+          f"{spec['world']} rank(s) over "
           f"{spec['backend']} in {time.perf_counter() - t0:.1f} s [{card}]",
           flush=True)
     return res
@@ -4031,18 +4370,20 @@ def parallel_phase(dev, rng, card, profile):
 
 
 def main() -> int:
-    if len(sys.argv) == 4 and sys.argv[1] == "--parallel-rank":
-        # one rank of a world of the parallel phase (par_world)
+    ranks = {"--parallel-rank": par_rank, "--predict-rank": predict_rank}
+    if len(sys.argv) == 4 and sys.argv[1] in ranks:
+        # one rank of a world of the parallel or the cli phase (par_world)
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         with open(sys.argv[2]) as f:
             spec = json.load(f)
-        print(json.dumps(par_rank(spec, int(sys.argv[3]))), flush=True)
+        print(json.dumps(ranks[sys.argv[1]](spec, int(sys.argv[3]))),
+              flush=True)
         return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace one eval, train, eval3, train3, ln2fc1 "
                          "eval and ln2fc1 train step with torch.profiler")
-    ap.add_argument("--only", choices=["parallel"],
+    ap.add_argument("--only", choices=["parallel", "cli"],
                     help="build, then run only this phase (no result "
                          "line: the contract needs every phase)")
     args = ap.parse_args()
@@ -4084,9 +4425,10 @@ def main() -> int:
     rng = np.random.default_rng(0)
     if args.only:
         t0 = time.perf_counter()
-        got = parallel_phase(dev, rng, card, False)
-        print(f"phase parallel: {time.perf_counter() - t0:.1f} s; launches "
-              f"{got}", flush=True)
+        phase = {"parallel": parallel_phase, "cli": cli_phase}[args.only]
+        got = phase(dev, rng, card, False)
+        print(f"phase {args.only}: {time.perf_counter() - t0:.1f} s; "
+              f"launches {got}", flush=True)
         return 0
     t0 = time.perf_counter()
     rows = kernel_phase(dev, rng)

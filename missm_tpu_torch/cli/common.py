@@ -15,6 +15,7 @@ from typing import Dict
 
 import torch
 
+from ..core.cache import enable_compilation_cache
 from ..core.config import TowerConfig, languagebind_large, tiny_tower
 from ..core.device import resolve_device
 from ..core.mesh import DATA_AXIS, axis_size, local_batch_size, make_mesh
@@ -152,11 +153,12 @@ def make_tokenizer(args):
 
 def make_loader_fns(args):
     """The media loaders of the run's towers, their transforms on
-    `args.device`."""
+    `args.device`; uint8 image, thermal and video under --uint8_upload."""
     return make_media_loaders(
         build_tower_cfgs(args),
         reference_randomness=getattr(args, "reference_randomness", False),
-        seed=args.seed, device=getattr(args, "device", "cuda"))
+        seed=args.seed, quantized=getattr(args, "uint8_upload", False),
+        device=getattr(args, "device", "cuda"))
 
 
 def to_device(tree, device):
@@ -209,7 +211,9 @@ def _parallel(args) -> bool:
 
 def setup_mesh(args, backend: str | None = None):
     """The run's (data, model[, pipe]) mesh over every rank, or None for a
-    one-process run without a layout flag (the one-device path)."""
+    one-process run without a layout flag (the one-device path). Points
+    the kernel build cache first (core/cache.py)."""
+    enable_compilation_cache()
     up = maybe_init_distributed(args, backend)
     if not up:
         if _parallel(args):

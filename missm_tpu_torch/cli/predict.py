@@ -8,6 +8,13 @@ python -m missm_tpu_torch.cli.predict --datasetName mvsa \
 
 With `--artifact DIR` it serves from a cli.export artifact instead (no
 checkpoint restore and no model config; the artifact's batch size).
+
+With `--distributed` (and the layout flags of cli.train) the checkpoint is
+restored and partitioned as cli.test does it, so each rank keeps its
+partition of the params; the eval batch is rounded to the mesh
+(round_eval_batch), each data rank predicts its shard of the rows at
+`--batch_size` / n_data a batch, the rows are gathered, and rank 0 writes
+them in dataset order (eval/predictor.py).
 """
 from __future__ import annotations
 
@@ -19,8 +26,9 @@ import torch
 from ..compat.args import test_args
 from ..data.datasets import DATASET_SPECS, MMDataset, encode_labels
 from ..eval.predictor import Predictor
+from ..train.checkpoint import restore_checkpoint
 from .common import (build_model_config, make_loader_fns, make_tokenizer,
-                     setup_mesh)
+                     round_eval_batch, setup_layout, setup_mesh)
 
 
 def _serve_artifact(path, samples, args):
@@ -66,10 +74,10 @@ def main(argv=None):
             else:
                 artifact = val
     args = test_args(raw)
-    # --distributed: a multi-device artifact serves each rank's rows; a
-    # checkpoint's Predictor runs whole on every rank, and rank 0 writes
+    # --distributed: a multi-device artifact serves each rank's rows, a
+    # checkpoint's Predictor each data rank's shard; rank 0 writes
     import torch.distributed as dist
-    setup_mesh(args)
+    mesh = setup_mesh(args)
     lead = not dist.is_initialized() or dist.get_rank() == 0
 
     spec = DATASET_SPECS[args.datasetName]
@@ -84,13 +92,18 @@ def main(argv=None):
     if artifact is not None:
         preds, probs = _serve_artifact(artifact, samples, args)
     else:
-        cfg = build_model_config(args, num_classes)
+        rank_batch = round_eval_batch(args, mesh)
+        cfg = build_model_config(args, num_classes, mesh=mesh)
         ckpt = os.path.join(args.model_ckpt_dir,
                             f"{args.datasetName}_{args.fusion_type}")
-        pred = Predictor.from_checkpoint(
-            ckpt, cfg, batch_size=args.batch_size,
-            tokenizer=make_tokenizer(args),
-            media_loaders=make_loader_fns(args), device=args.device)
+        tree, _ = restore_checkpoint(ckpt)
+        # partitioned on the host: only this rank's part goes to its device
+        cfg, params = setup_layout(args, cfg, tree["params"], mesh)
+        del tree
+        pred = Predictor(params, cfg, batch_size=rank_batch,
+                         tokenizer=make_tokenizer(args),
+                         media_loaders=make_loader_fns(args),
+                         device=args.device)
         preds, probs = pred.predict(samples)
 
     out = pd.DataFrame({

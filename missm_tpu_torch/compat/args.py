@@ -4,19 +4,17 @@ missm_tpu/compat/args.py.
 `train_args()` mirrors train_ddp.py:19-47, `test_args()` mirrors
 test.py:15-40 (same names, same defaults: reference configs run
 unchanged), plus the JAX package's extras with the same names and
-defaults. Each extra either runs as in the JAX package or, where its
-feature is not ported, raises when given anything but its default; none
-is silently ignored:
+defaults. Each extra runs as in the JAX package; none is silently
+ignored:
 
-  runs:   --config, --model_scale, --init, --checkpoint_dir, --vocab_file,
-          --merges_file, --hash_tokenizer, --reference_randomness,
-          --video_decode_backend, --remat true|false|a named policy (also
-          per modality),
-          --grad_accum, --checkpoint_every, --resume, --profile_dir,
-          --bf16, --frozen_bf16, --device, and the parallel layouts:
-          --mesh_model, --fsdp, --mesh_pipe, --pipe_microbatches,
-          --pipe_schedule and --distributed (parallel/, cli/common.py)
-  raises: --uint8_upload true (the data layer has no quantized upload)
+  --config, --model_scale, --init, --checkpoint_dir, --vocab_file,
+  --merges_file, --hash_tokenizer, --reference_randomness,
+  --video_decode_backend, --remat true|false|a named policy (also per
+  modality), --grad_accum, --checkpoint_every, --resume, --profile_dir,
+  --bf16, --frozen_bf16, --device, --uint8_upload (uint8 image, thermal
+  and video batches, data/preprocess.py), and the parallel layouts:
+  --mesh_model, --fsdp, --mesh_pipe, --pipe_microbatches, --pipe_schedule
+  and --distributed (parallel/, cli/common.py)
 
 `--device` (the port's `device=`) defaults to `cuda` in both parsers, as
 the JAX package's test parser defaults to `tpu`; `--device cpu` runs the
@@ -195,8 +193,9 @@ def _extras(p: argparse.ArgumentParser):
                         "in bf16: bit-identical under --bf16 compute, which "
                         "casts them anyway; requires --bf16")
     p.add_argument("--uint8_upload", type=_bool, default=False,
-                   help="only false runs: the port's data layer resizes "
-                        "on the card and has no quantized host upload")
+                   help="resize image, thermal and video in f32, round "
+                        "to uint8 and normalise in the model (smaller "
+                        "batches; at most 0.5/255 of range changes)")
     p.add_argument("--distributed", type=_distributed, default=False,
                    help="multi-process rendezvous, one process a device: "
                         "'true' reads torchrun's env (RANK, WORLD_SIZE, "
@@ -283,10 +282,6 @@ def _finalize(parser: argparse.ArgumentParser, argv):
                  if a.type is not None}
         apply_yaml_config(args, args.config, explicit_cli_keys(parser, raw),
                           types=types)
-    if args.uint8_upload:
-        parser.error("--uint8_upload true is not ported: the port's data "
-                     "layer resizes on the card and has no quantized host "
-                     "upload")
     accum = args.grad_accum
     if accum < 1:
         parser.error(f"--grad_accum must be >= 1, got {accum}")

@@ -1,0 +1,1 @@
+from .prng import PRNGSeq

@@ -61,6 +61,26 @@ def _as_item(x):
     return x if torch.is_tensor(x) else np.asarray(x)
 
 
+def shard_rows(order: np.ndarray, num_shards: int, shard_index: int):
+    """(this shard's rows of `order`, how many of them are real). The order
+    is padded by wrap-around to a multiple of `num_shards`, as
+    DistributedSampler pads it, so every shard has as many rows, and the
+    shards take its rows in turn. The wrap duplicates occupy positions
+    n..total-1 of the strided order, i.e. the TAIL of each affected shard;
+    the real count lets eval exclude them from metrics (the reference's
+    DistributedSampler counts them — a documented defect fixed here,
+    docs/PARITY.md)."""
+    n = len(order)
+    per_shard = math.ceil(n / num_shards)
+    total = per_shard * num_shards
+    if total > n:
+        order = np.concatenate([order, order[: total - n]])
+    idx = order[shard_index::num_shards]
+    real = len(idx) - sum(1 for p in range(n, total)
+                          if p % num_shards == shard_index)
+    return idx, real
+
+
 class BatchLoader:
     """Iterates (data, labels, missing_index) batches.
 
@@ -98,20 +118,8 @@ class BatchLoader:
     def _shard_indices(self) -> np.ndarray:
         order = epoch_order(len(self.dataset), self.shuffle, self.seed,
                             self.epoch)
-        n = len(order)
-        per_shard = math.ceil(n / self.num_shards)
-        total = per_shard * self.num_shards
-        if total > n:  # wrap-around padding (DistributedSampler)
-            order = np.concatenate([order, order[: total - n]])
-        idx = order[self.shard_index::self.num_shards]
-        # wrap duplicates occupy positions n..total-1 of the strided
-        # order, i.e. the TAIL of each affected shard. Record how many
-        # of this shard's rows are real so eval can exclude the
-        # duplicates from metrics (the reference's DistributedSampler
-        # counts them — a documented defect fixed here, docs/PARITY.md).
-        self.shard_real_count = len(idx) - sum(
-            1 for p in range(n, total)
-            if p % self.num_shards == self.shard_index)
+        idx, self.shard_real_count = shard_rows(order, self.num_shards,
+                                                self.shard_index)
         return idx
 
     def _decode_map(self, loader: Callable, column):

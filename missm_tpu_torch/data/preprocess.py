@@ -27,25 +27,32 @@ import numpy as np
 from ..core.config import TowerConfig
 from ..core.device import resolve_device
 from ..ops.image_transforms import (depth_transform, image_transform,
-                                    video_transform)
+                                    image_transform_u8, video_transform,
+                                    video_transform_u8)
 from ..ops.melfbank import (FbankConfig, audio_model_input, chunk_ranges,
                             num_frames)
 from . import ingest_io
 
 
-def make_image_loader(size: int = 224, *, device="cuda") -> Callable:
-    """path -> [3, size, size] f32 on `device`."""
+def make_image_loader(size: int = 224, quantized: bool = False, *,
+                      device="cuda") -> Callable:
+    """path -> [3, size, size] f32 on `device`; with `quantized`
+    (--uint8_upload) uint8, resized in f32 and rounded, the normalise left
+    to the model. The JAX loader falls back to f32 without its native
+    resampler; the port resizes on `device` and always gives uint8."""
     dev = resolve_device(device)
+    transform = image_transform_u8 if quantized else image_transform
 
     def load(path):
         img = ingest_io.decode_image(path)           # [H, W, 3] uint8
-        return image_transform(img, size, device=dev)
+        return transform(img, size, device=dev)
     return load
 
 
-def make_thermal_loader(size: int = 224, *, device="cuda") -> Callable:
+def make_thermal_loader(size: int = 224, quantized: bool = False, *,
+                        device="cuda") -> Callable:
     # thermal processing == image processing (thermal/processing_thermal.py)
-    return make_image_loader(size, device=device)
+    return make_image_loader(size, quantized, device=device)
 
 
 def make_depth_loader(size: int = 224, max_depth: float = 10.0, *,
@@ -64,10 +71,12 @@ def make_video_loader(num_frames: int = 8, size: int = 224,
                       rng: Optional[np.random.Generator] = None,
                       backend: str = "decord",
                       clip_start_sec: float = 0.0,
-                      clip_end_sec: Optional[float] = None, *,
+                      clip_end_sec: Optional[float] = None,
+                      quantized: bool = False, *,
                       device="cuda") -> Callable:
-    """Backend selects the reference's SAMPLING semantics (decode is always
-    the native FFmpeg ingest):
+    """`quantized` (--uint8_upload): [3, T, size, size] uint8 samples, as
+    make_image_loader's. Backend selects the reference's SAMPLING semantics
+    (decode is always the native FFmpeg ingest):
     - 'decord' / 'opencv' / 'ffmpeg': np.linspace(0, total-1, T) frame ids
       (processing_video.py:92,100) — one sequential decode pass.
     - 'pytorchvideo': EncodedVideo.get_clip(start, end) then
@@ -81,6 +90,7 @@ def make_video_loader(num_frames: int = 8, size: int = 224,
         raise NameError(  # reference error type, processing_video.py:67
             "video_decode_backend should specify in "
             "(pytorchvideo, decord, opencv)")
+    transform = video_transform_u8 if quantized else video_transform
 
     def load(path):
         if backend == "pytorchvideo":
@@ -97,7 +107,7 @@ def make_video_loader(num_frames: int = 8, size: int = 224,
         else:
             frames = ingest_io.decode_video(path, num_frames)  # [T,H,W,3]
         flip = bool(rng.integers(0, 2)) if reference_randomness else False
-        return video_transform(frames, size, flip=flip, device=dev)
+        return transform(frames, size, flip=flip, device=dev)
     return load
 
 
@@ -138,19 +148,21 @@ def make_audio_loader(cfg: TowerConfig,
 
 def make_media_loaders(tower_cfgs: Dict[str, TowerConfig],
                        reference_randomness: bool = False,
-                       seed: int = 0, *,
+                       seed: int = 0, quantized: bool = False, *,
                        device="cuda") -> Dict[str, Callable]:
     """{modality: loader} for `tower_cfgs`; the device transforms run on
-    `device` (the card unless the caller asks for the CPU)."""
+    `device` (the card unless the caller asks for the CPU). `quantized`
+    (--uint8_upload): image, thermal and video samples as uint8; depth and
+    audio as they are."""
     rng = np.random.default_rng(seed)
     dev = resolve_device(device)
     out: Dict[str, Callable] = {}
     for m, cfg in tower_cfgs.items():
         size = cfg.vision.image_size[0]  # square for all but audio
         if m == "image":
-            out[m] = make_image_loader(size, device=dev)
+            out[m] = make_image_loader(size, quantized, device=dev)
         elif m == "thermal":
-            out[m] = make_thermal_loader(size, device=dev)
+            out[m] = make_thermal_loader(size, quantized, device=dev)
         elif m == "depth":
             out[m] = make_depth_loader(size, max_depth=cfg.max_depth,
                                        device=dev)
@@ -159,7 +171,7 @@ def make_media_loaders(tower_cfgs: Dict[str, TowerConfig],
                                        reference_randomness=
                                        reference_randomness, rng=rng,
                                        backend=cfg.video_decode_backend,
-                                       device=dev)
+                                       quantized=quantized, device=dev)
         elif m == "audio":
             out[m] = make_audio_loader(cfg, reference_randomness=
                                        reference_randomness, rng=rng,

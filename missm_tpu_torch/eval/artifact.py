@@ -179,8 +179,14 @@ class ServingArtifact:
     def _typed(self, tree, specs):
         if isinstance(tree, Mapping):
             return {k: self._typed(v, specs[k]) for k, v in tree.items()}
-        return torch.as_tensor(tree, device=self.device).to(
-            getattr(torch, specs["dtype"]))
+        x = torch.as_tensor(tree, device=self.device)
+        want = getattr(torch, specs["dtype"])
+        if x.dtype == torch.uint8 and want.is_floating_point:
+            # a cast would feed the raw 0-255 values unnormalised
+            raise ValueError("uint8 media (--uint8_upload) given to an "
+                             "artifact exported for normalised float "
+                             "input")
+        return x.to(want)
 
     def predict_arrays(self, data: Mapping, missing_index=None):
         """data: {modality: batched array, tensor or token dict}; returns

@@ -6,6 +6,13 @@ probabilities) for raw samples or for arrays. Partial batches are padded
 to the predictor's batch size, so every forward has one shape. The
 tokenizer and the media loaders are injected by the caller;
 `from_checkpoint` restores the params of a train_loop checkpoint.
+
+Under a parallel layout (`cfg.parallel`, this rank's params) `predict`
+does what the JAX Predictor does through its mesh device_put: each data
+rank predicts its shard of the samples (the loaders' wrap-around shards),
+the model and pipe ranks of one data replica the same shard, and the rows
+are gathered over the data group without the wrap-around duplicates
+(eval/sweep.py::_gather_rows), so every rank returns every row in order.
 """
 from __future__ import annotations
 
@@ -15,8 +22,9 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..data.loaders import shard_rows
 from ..models.finetune import ModelConfig, model_forward, tree_map
-from .sweep import _pad_batch
+from .sweep import _gather_rows, _pad_batch, data_group
 
 
 class Predictor:
@@ -63,6 +71,12 @@ class Predictor:
         """data: {modality: batched array}; returns (preds, probs) as numpy,
         cut to the batch's own length. A batch longer than the predictor's
         batch size raises."""
+        (preds, probs), n = self._padded(data, missing_index)
+        return preds.cpu().numpy()[:n], probs.float().cpu().numpy()[:n]
+
+    def _padded(self, data: Mapping, missing_index):
+        """((preds, probs) on the device for `data` padded to the batch
+        size, the batch's own length)."""
         n = len(next(iter(
             v["input_ids"] if isinstance(v, Mapping) else v
             for v in data.values())))
@@ -81,11 +95,15 @@ class Predictor:
         else:
             missing_index = _pad_batch(np.asarray(missing_index, np.int32),
                                        target)
-        preds, probs = self._predict(data, missing_index)
-        return preds.cpu().numpy()[:n], probs.float().cpu().numpy()[:n]
+        return self._predict(data, missing_index), n
 
     def predict(self, samples: Sequence[Mapping], missing_index=None):
-        """Raw samples -> (preds, probs), in chunks of the batch size."""
+        """Raw samples -> (preds, probs), in chunks of the batch size; under
+        a layout with more than one data rank, this rank's shard of them,
+        gathered (see the module)."""
+        group = data_group(self.cfg)
+        if group is not None:
+            return self._predict_shard(samples, missing_index, group)
         preds, probs = [], []
         bs = self.batch_size
         for i in range(0, len(samples), bs):
@@ -95,3 +113,30 @@ class Predictor:
             preds.append(p)
             probs.append(pr)
         return np.concatenate(preds), np.concatenate(probs)
+
+    def _predict_shard(self, samples, missing_index, group):
+        lay = self.cfg.parallel
+        idx, real = shard_rows(np.arange(len(samples)), lay.n_data,
+                               lay.data_index)
+        preds = np.zeros(len(samples), np.int64)
+        probs = None
+        bs = self.batch_size
+        # every rank runs as many batches (the shards are of one length),
+        # so the layout's collectives and the gather meet
+        for i in range(0, len(idx), bs):
+            rows = idx[i:i + bs]
+            data = self._collate_raw([samples[j] for j in rows])
+            mi = (None if missing_index is None
+                  else np.asarray(missing_index)[rows])
+            (p, pr), _ = self._padded(data, mi)
+            n = max(0, min(len(rows), real - i))
+            for p_r, pr_r, rows_r in _gather_rows(
+                    group, n, p, pr.float(),
+                    torch.as_tensor(_pad_batch(rows, bs), device=p.device)):
+                if probs is None:
+                    probs = np.zeros((len(samples), pr_r.shape[1]),
+                                     np.float32)
+                at = rows_r.astype(np.int64)
+                preds[at] = p_r.astype(np.int64)
+                probs[at] = pr_r.astype(np.float32)
+        return preds, probs

@@ -28,6 +28,12 @@ Reference semantics:
   argument so that eval can be pinned deterministic.
 - depth: /1000 m -> clip(min 0.01[, max]) -> /max (or /img.max()) -> 3-chan
   -> Resize(224, bicubic) -> CenterCrop -> Normalize.
+
+--uint8_upload (`image_transform_u8`, `video_transform_u8`): the same
+resize and crop in f32 over the raw 0-255 values, rounded half up and
+clamped to uint8 (the JAX package's native `mi_resample_u8_u8`,
+cpp/ingest.cc); the model normalises on the device
+(models/finetune.py::_dequantize). Image, thermal and video only.
 """
 from __future__ import annotations
 
@@ -105,6 +111,26 @@ def image_transform(img_hwc_uint8, size: int = 224, *,
     return _normalize(y)
 
 
+def _round_u8(x: torch.Tensor) -> torch.Tensor:
+    """f32 values on the 0-255 scale -> uint8: floor(x + 0.5) clamped to
+    [0, 255], half up as the native resampler rounds (not torch.round's
+    half to even)."""
+    return torch.clamp(torch.floor(x + 0.5), 0, 255).to(torch.uint8)
+
+
+def image_transform_u8(img_hwc_uint8, size: int = 224, *,
+                       device="cuda") -> torch.Tensor:
+    """--uint8_upload variant of `image_transform`: [H, W, C] uint8 ->
+    [C, size, size] uint8 on `device`, the resize and crop in f32 over the
+    raw values, rounded; no normalise."""
+    dev = resolve_device(device)
+    img = _on(img_hwc_uint8, dev)
+    h, w = img.shape[:2]
+    mh, mwt = _weights_on(dev, h, w, size, "bicubic", True)
+    x = img.float().permute(2, 0, 1)
+    return _round_u8(torch.matmul(torch.matmul(mh, x), mwt))
+
+
 def video_transform(frames_thwc_uint8, size: int = 224, flip: bool = False,
                     *, device="cuda") -> torch.Tensor:
     """[T, H, W, C] uint8 -> [C, T, size, size] float32 on `device`.
@@ -118,6 +144,19 @@ def video_transform(frames_thwc_uint8, size: int = 224, flip: bool = False,
     x = (frames.float() / 255.0).permute(3, 0, 1, 2)  # C T H W
     x = _normalize(x)
     return torch.matmul(torch.matmul(mh, x), mwt)
+
+
+def video_transform_u8(frames_thwc_uint8, size: int = 224,
+                       flip: bool = False, *, device="cuda") -> torch.Tensor:
+    """--uint8_upload variant of `video_transform`: [T, H, W, C] uint8 ->
+    [C, T, size, size] uint8 on `device` (bilinear in f32 over the raw
+    values, each frame rounded; no normalise)."""
+    dev = resolve_device(device)
+    frames = _on(frames_thwc_uint8, dev)
+    h, w = frames.shape[1:3]
+    mh, mwt = _weights_on(dev, h, w, size, "bilinear", False, flip)
+    x = frames.float().permute(3, 0, 1, 2)
+    return _round_u8(torch.matmul(torch.matmul(mh, x), mwt))
 
 
 def depth_transform(depth_hw, size: int = 224, max_depth: float = 10.0,

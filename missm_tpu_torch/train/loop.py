@@ -32,6 +32,7 @@ from ..core.device import resolve_device
 from ..eval.sweep import _pad_batch, data_group, evaluate_metrics
 from ..models.finetune import ModelConfig, tree_map
 from ..utils.prefetch import prefetch
+from ..utils.profiling import start_profiler, stop_profiler
 from .checkpoint import AsyncSaver, read_metadata, restore_checkpoint, \
     save_checkpoint
 from .plateau import PlateauState, plateau_init, plateau_update
@@ -418,10 +419,11 @@ def train_loop(params, cfg: ModelConfig, train_loader, valid_loader, *,
                     # whole steps.
                     if n_batches == 3 and profiler is None:
                         float(loss_acc)
-                        profiler = _start_profiler(dev)
+                        profiler = start_profiler(dev)
                     elif n_batches == 6 and profiler is not None:
                         float(loss_acc)
-                        _stop_profiler(profiler, profile_dir)
+                        stop_profiler(profiler, profile_dir,
+                                      "train_trace.json")
                         profiler = None
                 if sync_every and n_batches % sync_every == 0:
                     float(loss_acc)  # drains the device queue
@@ -431,7 +433,7 @@ def train_loop(params, cfg: ModelConfig, train_loader, valid_loader, *,
                 if stop_mid:
                     break  # batch-boundary stop; checkpoint below
             if profiler is not None:  # epoch shorter than the trace window
-                _stop_profiler(profiler, profile_dir)
+                stop_profiler(profiler, profile_dir, "train_trace.json")
                 profiler = None
             if stop_mid:
                 # mid-epoch preemption: the partial epoch's param/opt
@@ -587,20 +589,3 @@ def _agreed_stop(local: bool, dev) -> bool:
     from ..parallel.collectives import all_reduce
     return bool(all_reduce(flag, None,
                            torch.distributed.ReduceOp.MAX).item() > 0)
-
-
-def _start_profiler(dev):
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    prof = profile(activities=acts)
-    prof.start()
-    return prof
-
-
-def _stop_profiler(prof, profile_dir):
-    prof.stop()
-    os.makedirs(profile_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(profile_dir, "train_trace.json"))

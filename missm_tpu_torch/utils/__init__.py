@@ -1,0 +1,2 @@
+from .prefetch import Prefetcher, prefetch
+from .profiling import StepTimer, trace

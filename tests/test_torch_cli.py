@@ -5,8 +5,8 @@ test_checkpoint_fixture.py:95, test_yaml_config.py and
 test_preemption.py:209, and held against the JAX package's:
 
 - the parsers' flags and defaults equal missm_tpu.compat.args's, but
-  --device (cuda here, tpu there); every flag whose feature is not ported
-  raises when given anything but its default;
+  --device (cuda here, tpu there); the layout flags and --uint8_upload
+  parse to the JAX parser's values;
 - cli.test's reports against missm_tpu.cli.test's on the same params
   (built in JAX, bridged with from_jax, each saved with its own package's
   save_checkpoint as final_model/mvsa_sum), f32, the same JPEG tree: every
@@ -301,8 +301,8 @@ def test_flags_and_defaults_equal_jax(which):
     assert got == want
 
 
-# the parallel layouts' flags parse to the JAX package's values (item None);
-# --uint8_upload true still raises
+# the parallel layouts' flags and --uint8_upload true parse to the JAX
+# package's values (item None); a flag with an item would raise with it
 UNPORTED = [
     (["--mesh_model", "2"], None),
     (["--fsdp"], None),
@@ -311,7 +311,7 @@ UNPORTED = [
     (["--pipe_schedule", "1f1b"], None),
     (["--distributed", "true"], None),
     (["--distributed", "10.0.0.1:1234,2,0"], None),
-    (["--uint8_upload", "true"], "no quantized host upload"),
+    (["--uint8_upload", "true"], None),
 ]
 # the named remat policies: each parses, in one value or a per-tower spec
 POLICIES = [(["--remat", "save_attn_mlp"], "save_attn_mlp"),
@@ -323,8 +323,8 @@ POLICIES = [(["--remat", "save_attn_mlp"], "save_attn_mlp"),
 @pytest.mark.parametrize("flags,item", UNPORTED,
                          ids=[" ".join(f) for f, _ in UNPORTED])
 def test_unported_flags_raise(which, flags, item, capsys):
-    """The parallel-layout flags give the JAX parser's values (the device
-    default aside); the one flag left unported raises."""
+    """The parallel-layout flags and --uint8_upload give the JAX parser's
+    values (the device default aside); no flag is left unported."""
     parse = train_args if which == "train" else test_args
     argv = flags + ["--modality_types", "language", "image"]
     if item is None:

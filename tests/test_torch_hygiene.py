@@ -19,6 +19,7 @@ from missm_tpu_torch.cli.common import maybe_init_distributed
 from missm_tpu_torch.compat.args import train_args
 from missm_tpu_torch.parallel.dryrun import dryrun
 from missm_tpu_torch.compat.from_jax import from_jax
+from missm_tpu_torch.core import PRNGSeq
 from missm_tpu_torch.core.config import tiny_tower
 from missm_tpu_torch.data.preprocess import make_media_loaders
 from missm_tpu_torch.eval.artifact import export_artifact, load_artifact
@@ -28,6 +29,7 @@ from missm_tpu_torch.ops.image_transforms import image_transform
 from missm_tpu_torch.ops.melfbank import FbankConfig, audio_model_input
 from missm_tpu_torch.train.step import (init_train_state, make_eval_step,
                                         make_train_step)
+from missm_tpu_torch.utils import trace
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -38,6 +40,8 @@ names = [m.name for m in pkgutil.walk_packages(missm_tpu_torch.__path__,
                                                 "missm_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+assert {"missm_tpu_torch.utils.profiling", "missm_tpu_torch.core.prng",
+        "missm_tpu_torch.core.cache"} <= set(names)
 from missm_tpu_torch.kernels import build
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -113,7 +117,8 @@ def _cfg():
                                    "image_transform", "audio_model_input",
                                    "export_artifact", "load_artifact",
                                    "cli.export", "parallel.dryrun",
-                                   "maybe_init_distributed"])
+                                   "maybe_init_distributed", "trace",
+                                   "PRNGSeq"])
 def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch,
                                                                 tmp_path,
                                                                 entry):
@@ -146,6 +151,8 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch,
         "parallel.dryrun": lambda: dryrun(4),
         "maybe_init_distributed": lambda: maybe_init_distributed(
             train_args(["--distributed", "10.0.0.1:1234,2,0"])),
+        "trace": lambda: trace(str(tmp_path / "trace")).__enter__(),
+        "PRNGSeq": lambda: PRNGSeq(0),
     }
     if entry == "load_artifact":  # a CPU artifact, asked for on the card
         export_artifact(params, cfg, data, str(tmp_path / "art"),

@@ -3,19 +3,29 @@ missm_tpu_torch.cli.train --distributed file://...,2,i` on
 tests/synthetic.py's mvsa tree, under --fsdp (DP 2 with the large leaves
 sharded) and under --mesh_pipe 2 --pipe_schedule 1f1b (two stages), then a
 one-process cli.test over what they wrote: rank 0 wrote the gathered final
-model, at the full shapes of a fresh init, and the sweep runs on it.
+model, at the full shapes of a fresh init, and the sweep runs on it. Then
+cli.predict --distributed from that checkpoint on two ranks (a gloo world
+of tests/torch_world.py), under the same layout flags and under one more
+layout (DP 2 after --fsdp, --mesh_model 2 after the pipeline), against
+one process's cli.predict: rank 0's predictions.csv holds the same rows,
+labels and preds, the confidences within 1e-5 (f32); each data rank
+collated only its shard of the rows, and each rank of a sharded layout
+holds fewer parameter elements than the whole model.
 """
 import os
 import subprocess
 import sys
 
+import numpy as np
+import pandas as pd
 import pytest
 import torch
 
+from missm_tpu_torch.cli import predict as cli_predict
 from missm_tpu_torch.cli import test as cli_test
 from missm_tpu_torch.train.checkpoint import restore_checkpoint
 from tests.synthetic import make_mvsa_tree
-from tests.torch_world import REPO
+from tests.torch_world import REPO, run_world
 
 pytestmark = pytest.mark.filterwarnings("ignore")
 
@@ -52,10 +62,12 @@ def _train_world(csv, run, extra, timeout=180):
     return out
 
 
-@pytest.mark.parametrize("extra", [["--fsdp"],
-                                   ["--mesh_pipe", "2", "--pipe_schedule",
-                                    "1f1b"]], ids=["fsdp", "pipe_1f1b"])
-def test_cli_train_on_two_ranks_then_test(extra, tmp_path, monkeypatch):
+@pytest.mark.parametrize("extra,also", [
+    (["--fsdp"], []),
+    (["--mesh_pipe", "2", "--pipe_schedule", "1f1b"], ["--mesh_model", "2"]),
+], ids=["fsdp", "pipe_1f1b"])
+def test_cli_train_on_two_ranks_then_test(extra, also, tmp_path,
+                                          monkeypatch):
     csv = make_mvsa_tree(str(tmp_path / "mvsa"), write_media=True)
     run = tmp_path / "run"
     run.mkdir()
@@ -75,3 +87,31 @@ def test_cli_train_on_two_ranks_then_test(extra, tmp_path, monkeypatch):
                      "8", "--num_workers", "0", "--bf16", "false"])
     assert set(res["sum"]["image"]) and (
         run / "new_txt_experiment" / "mvsa_sum_image.txt").exists()
+
+    # predictions from the checkpoint: one process, then two ranks under
+    # the training layout and under `also`, in turn in one world
+    pargv = ["--datasetName", "mvsa", "--csv_path", csv, "--fusion_type",
+             "sum", *TINY, "--batch_size", "3", "--bf16", "false"]
+    one = cli_predict.main(pargv + ["--output", "one.csv"])
+    assert len(one) == 10  # the synthetic tree's test split
+    full = sum(t.numel() for t in torch.utils._pytree.tree_leaves(params))
+    layouts = [extra, also]
+    ranks = run_world(2, "tests.torch_parallel_cases:predict_case",
+                      tmp_path, argvs=[pargv + flags + [
+                          "--output", f"two{i}.csv"]
+                          for i, flags in enumerate(layouts)], cwd=str(run))
+    for i, flags in enumerate(layouts):
+        seen = [r[i] for r in ranks]
+        # DP and FSDP: a data rank collates its 5 rows; TP and the
+        # pipeline: one data replica, every row on both ranks
+        n_data = 1 if {"--mesh_model", "--mesh_pipe"} & set(flags) else 2
+        assert [r["rows"] for r in seen] == [10 // n_data] * 2, seen
+        sharded = bool(flags)  # every layout flag shards the params
+        assert all((r["numel"] < full) == sharded for r in seen), (
+            seen, full)
+        two = pd.read_csv(run / f"two{i}.csv")
+        assert list(two.columns) == list(one.columns)
+        for col in ("index", "label", "pred"):
+            np.testing.assert_array_equal(two[col], one[col], err_msg=col)
+        np.testing.assert_allclose(two["confidence"], one["confidence"],
+                                   atol=1e-5, rtol=0)

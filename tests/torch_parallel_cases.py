@@ -242,3 +242,37 @@ def artifact_case(rank, world, *, tree, towers, fusion, batch, out_dir):
     art = load_artifact(out_dir, device="cpu")
     preds, probs = art.predict_arrays(data, missing)
     return {"preds": preds, "probs": probs, "manifest": art.manifest}
+
+
+def predict_case(rank, world, *, argvs, cwd):
+    """cli.predict --distributed of each argv of `argvs` in turn, in `cwd`,
+    on this rank (the world's gloo group up, as torchrun's would be): for
+    each, how many samples this rank's Predictor collated and how many
+    parameter elements it holds."""
+    import os
+
+    from missm_tpu_torch.cli import predict as cli_predict
+    from missm_tpu_torch.eval.predictor import Predictor
+
+    out = []
+    init, collate = Predictor.__init__, Predictor._collate_raw
+
+    def counted_init(self, params, *a, **kw):
+        init(self, params, *a, **kw)
+        leaves = []
+        torch.utils._pytree.tree_map(leaves.append, self.params)
+        out[-1]["numel"] = sum(t.numel() for t in leaves
+                               if isinstance(t, torch.Tensor))
+
+    def counted_collate(self, samples):
+        out[-1]["rows"] += len(samples)
+        return collate(self, samples)
+    Predictor.__init__, Predictor._collate_raw = counted_init, counted_collate
+    os.chdir(cwd)
+    try:
+        for argv in argvs:
+            out.append({"rows": 0, "numel": 0})
+            cli_predict.main(argv + ["--distributed", "true"])
+    finally:
+        Predictor.__init__, Predictor._collate_raw = init, collate
+    return out
