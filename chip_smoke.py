@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port (missm_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile] [--only parallel|cli]
+    python3 chip_smoke.py [--profile] [--only parallel|cli|probes]
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. device   - needs a CUDA GPU; prints its name and power limit.
@@ -230,6 +230,8 @@ The kernels phase also times each `missm` custom op's host cost a call
 against the `_launch` it wraps.
 --profile adds one torch.profiler-traced step of each of eval, train, eval3,
 train3, ln2fc1 eval and ln2fc1 train and prints device time by kernel.
+--only builds, then runs one phase and prints no result line; `--only
+probes` runs the P1-P4 rows of the kernels phase, then the probes phase.
 """
 from __future__ import annotations
 
@@ -3878,10 +3880,30 @@ def probes_phase(dev):
         print(f"probes: ablation_probe {arm}: {val:.3f} ms/stack "
               f"({abl['img_per_s'][arm]:.1f} img/s), output vs production "
               f"{abl['rel_err'][arm]:.3e}", flush=True)
+    # what the staging layout buys: P4 full (swizzled tiles for wgmma)
+    # against nostage (the tiles as the input lays them out)
+    full, nostage = abl["ms"]["packed full"], abl["ms"]["packed nostage"]
+    print(f"probes: staging: packed full {full:.3f} ms/stack, packed "
+          f"nostage {nostage:.3f} ms/stack; nostage - full "
+          f"{nostage - full:.3f} ms a stack, {(nostage - full) / depth:.4f} "
+          f"ms a call ({depth} calls a stack)", flush=True)
     print(json.dumps({"probes": {"ln_linear_probe": ln, "mlp_bwd_probe": ab,
                                  "attn_probe": attn, "attn_probe_parity": par,
                                  "ablation_probe": abl}}))
     return launches, abl
+
+
+def probes_only(dev, rng, card, profile):
+    """`--only probes`: the P1-P4 rows of the kernels phase (each against
+    its plain version in f32 and bf16, timed beside SDPA through
+    `yardstick` with `plan`'s tiles), then the probes phase; prints the
+    rows. Returns the probes phase's non-zero launch counts."""
+    rows = probe_rows(dev, torch.Generator(device=dev).manual_seed(0))
+    for row in rows:
+        summarise_checks(row)
+    launches, _ = probes_phase(dev)
+    print(json.dumps({"probe_rows": rows}), flush=True)
+    return {name: n for name, n in launches.items() if n}
 
 
 def profile_step(name, run):
@@ -4383,7 +4405,7 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace one eval, train, eval3, train3, ln2fc1 "
                          "eval and ln2fc1 train step with torch.profiler")
-    ap.add_argument("--only", choices=["parallel", "cli"],
+    ap.add_argument("--only", choices=["parallel", "cli", "probes"],
                     help="build, then run only this phase (no result "
                          "line: the contract needs every phase)")
     args = ap.parse_args()
@@ -4425,7 +4447,8 @@ def main() -> int:
     rng = np.random.default_rng(0)
     if args.only:
         t0 = time.perf_counter()
-        phase = {"parallel": parallel_phase, "cli": cli_phase}[args.only]
+        phase = {"parallel": parallel_phase, "cli": cli_phase,
+                 "probes": probes_only}[args.only]
         got = phase(dev, rng, card, False)
         print(f"phase {args.only}: {time.perf_counter() - t0:.1f} s; "
               f"launches {got}", flush=True)

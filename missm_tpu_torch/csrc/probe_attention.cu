@@ -13,7 +13,8 @@
 //       kernel's rounding order (exp(s - m) rounded to the input type
 //       unnormalised, P.V divided by the row sum afterwards) on [B, N, H*hd],
 //       with the knock-outs noexp (e = s - m, den = sum(s - m)), dotsonly
-//       (e = s, den = 1) and nostage (full, the operands not staged).
+//       (e = s, den = 1) and nostage (full, each head's operands read as
+//       the input lays them out instead of through a re-layout).
 // The head-pair packing of P4 (two 64-wide heads under a lane mask in one
 // 128-lane row) only fills the TPU's lanes: each head's result is its own
 // softmax attention, so here every block works on one head.
@@ -90,12 +91,36 @@
 // commit group, or issuing tile j + 1's products before folding tile j's
 // (more registers, fewer blocks); the ragged query tiles launched first.
 // Each was slower or no faster.
-// nostage (P4): wgmma reads its B operand from shared memory only, so the
-// knock-out of every operand passing through shared memory exists on this
-// card only on mma.sync (m16n8k16, one warp per 16 query rows) with the
-// fragments loaded straight from device memory. It keeps that design; it
-// computes full's function, and its score rows (64 x N rounded up to 16,
-// f32) are the only thing in its shared memory, up to N = 896.
+// nostage (P4): the TPU arm slices q, k and v straight from the input
+// block, which sits in VMEM (on chip) as the full arm's does, instead of
+// first copying each head into a scratch of its own layout; what it knocks
+// out is that re-layout. full's counterpart here is TMA landing each head's
+// tile as a swizzled K-major box for wgmma, so nostage lands every tile as
+// the input holds it: a TMA box without swizzle, each token row its head's
+// 64 columns as 128 contiguous bytes, no padding, no copy per head. wgmma
+// cannot read that (its no-swizzle layout wants each 8-row x 16-byte core
+// matrix contiguous, its 128B layout the XOR pattern), so the products are
+// mma.sync m16n8k16, a warp per 16 query rows of the block's 64. The rest
+// is the whole-row kernel's: the two passes, the ring of kStages tiles
+// (K tiles, then (K, V) pairs) and its shared memory, 42,024 bytes whatever
+// N is, so no N limit; full's softmax (s in f32 times hd^-0.5, m the row's
+// max from the statistics pass, e = exp(s - m) rounded to bf16 as P, P.V in
+// f32 over den in f32). No operand comes from device memory: every fragment
+// is read from the tiles in shared memory. The rows' 128-byte pitch puts a
+// column of every row in the same four banks, so ldmatrix (the eight
+// 16-byte rows of one matrix all at one column) would conflict 8 ways on
+// every read. Each lane reads 16 bytes of its own instead: the contraction
+// of S = Q K^T runs over the 64 columns in an order of its own (k-step kk
+// takes columns 16 t + 4 kk .. 16 t + 4 kk + 3 of quad lane t), so lane
+// (g, t) needs columns 16 t .. 16 t + 15 of its key, and the eight lanes of
+// a quarter warp read eight different columns: no conflict. For P.V lane
+// (g, t) brings columns 8 g .. 8 g + 7 of keys 2t, 2t + 1, 2t + 8 and
+// 2t + 9 and pairs them into B fragments with byte permutes (output column
+// 8 g + j is n-group j's column g); four lanes share a column in each of
+// those loads, a 4-way conflict. Measured against it on one card in one
+// call and dropped: V read without conflict (4-byte loads, each lane's
+// words in an order rotated by t, rotated back in registers), slower; the
+// kernel is bound by its instructions more than by its shared-memory reads.
 // f32 inputs take a CUDA-core path (4 threads per query row, the row's
 // scores in shared memory) that keeps full f32 precision: the card's f32
 // reference in the checks.
@@ -130,7 +155,8 @@ constexpr unsigned kAll = 0xffffffffu;
 
 // Dynamic shared memory of each bf16 kernel (kernels/probe_attention.py::
 // plan computes the same): the whole-row kernel with WGS warpgroups, the
-// batch-row kernel with WGS warpgroups, the nostage kernel.
+// batch-row kernel with WGS warpgroups, the nostage kernel (the whole-row
+// kernel's one-warpgroup figure: Q, the ring, the barriers).
 int rows_smem(int wgs) {
   return 1024 + (wgs + kStages) * kTile + 8 * (1 + kStages);
 }
@@ -138,7 +164,7 @@ int scratch_smem(int wgs, int n) {
   return 1024 + 2 * wgs * kTile +
          2 * ((n + kBox - 1) / kBox) * kBox * kHD * 2 + 8 * (1 + 2 * wgs);
 }
-int nostage_smem(int n) { return 64 * ((n + 15) & ~15) * 4; }
+int nostage_smem() { return rows_smem(1); }
 
 // e of one score at column col: exp(s - m), s - m or s as MODE says below
 // n, 0 at or past n (the f32 and nostage kernels).
@@ -559,8 +585,10 @@ scratch_bf16(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 nostage (P4): mma.sync, fragments straight from device memory
+// bf16 nostage (P4): mma.sync on the tiles as the input lays them out
 // ---------------------------------------------------------------------------
+
+constexpr int kRowBytes = kHD * 2;  // one token row of a head in a tile
 
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
                                          uint32_t b0, uint32_t b1) {
@@ -571,111 +599,232 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The bf16 pair at (row, col), col even, and one element's bits, of a
-// slice in device memory with pitch ld; rows at or past `valid` read as 0.
-__device__ __forceinline__ uint32_t pair_at(const bf16* src, int row, int col,
-                                            int ld, int valid) {
-  if (row >= valid) return 0u;
-  return *reinterpret_cast<const uint32_t*>(src + (size_t)row * ld + col);
+__device__ __forceinline__ uint4 lds16(const uint8_t* p) {
+  return *reinterpret_cast<const uint4*>(p);
 }
 
-__device__ __forceinline__ uint32_t bits_at(const bf16* src, int row, int col,
-                                            int ld, int valid) {
-  if (row >= valid) return 0u;
-  return reinterpret_cast<const uint16_t*>(src)[(size_t)row * ld + col];
+// Columns 16 t .. 16 t + 15 of row `row` of a tile, as 8 words of two bf16.
+// A lane of odd g reads the upper 16 bytes first, so that the 8 lanes of a
+// quarter warp (g = 2i, 2i + 1; t = 0..3) read 8 different 16-byte columns
+// in each load.
+__device__ __forceinline__ void row_words(const uint8_t* tile, int row, int g,
+                                          int t, uint32_t w[8]) {
+  const uint8_t* p = tile + row * kRowBytes + 32 * t;
+  const int odd = g & 1;
+  const uint4 x = lds16(p + 16 * odd);
+  const uint4 y = lds16(p + 16 * (odd ^ 1));
+  const uint4 lo = odd ? y : x;
+  const uint4 hi = odd ? x : y;
+  w[0] = lo.x, w[1] = lo.y, w[2] = lo.z, w[3] = lo.w;
+  w[4] = hi.x, w[5] = hi.y, w[6] = hi.z, w[7] = hi.w;
 }
 
-// One block per (64-query tile, slice), a warp per 16 query rows. Shared
-// memory: each warp's scores, [ns / 8 tiles x 32 lanes] float4 (ns = N
-// rounded up to 16), each thread storing and reading back only its own
-// fragment of each 8-key tile.
-__global__ void __launch_bounds__(128)
-nostage_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ out, int n, int h,
-             float scale) {
-  extern __shared__ __align__(16) unsigned char smem_ns[];
-  const int ns = (n + 15) & ~15;
-  const int d = h * kHD;
-  const size_t base =
-      (size_t)(blockIdx.y / h) * n * d + (size_t)(blockIdx.y % h) * kHD;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int r0 = warp * 16 + g;  // tile rows r0, r0 + 8
-  const int q0 = blockIdx.x * kQRows;
-  float4* wsc = reinterpret_cast<float4*>(smem_ns) + warp * (ns >> 3) * 32;
-
-  const bf16* qt = q + base + (size_t)q0 * d;
-  uint32_t qf[kHD / 16][4];
+// S for the 8 keys from k8 of the K tile at kt against the warp's 16 query
+// rows (qw: row_words of rows g and g + 8). k-step kk contracts columns
+// 16 t + 4 kk .. 16 t + 4 kk + 3 of every quad lane t: words 2 kk and
+// 2 kk + 1 of row_words, in both operands. s[0], s[1]: row g, keys
+// k8 + 2t, k8 + 2t + 1; s[2], s[3]: row g + 8.
+__device__ __forceinline__ void group_scores(float s[4],
+                                             const uint32_t qw[2][8],
+                                             const uint8_t* kt, int k8, int g,
+                                             int t) {
+  uint32_t kw[8];
+  row_words(kt, k8 + g, g, t, kw);
+  s[0] = s[1] = s[2] = s[3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < kHD / 16; ++kk) {
-    const int col = kk * 16 + 2 * t;
-    qf[kk][0] = pair_at(qt, r0, col, d, n - q0);
-    qf[kk][1] = pair_at(qt, r0 + 8, col, d, n - q0);
-    qf[kk][2] = pair_at(qt, r0, col + 8, d, n - q0);
-    qf[kk][3] = pair_at(qt, r0 + 8, col + 8, d, n - q0);
+    const uint32_t a[4] = {qw[0][2 * kk], qw[1][2 * kk], qw[0][2 * kk + 1],
+                           qw[1][2 * kk + 1]};
+    mma_bf16(s, a, kw[2 * kk], kw[2 * kk + 1]);
   }
-  float m0 = -INFINITY, m1 = -INFINITY;
-  for (int k0 = 0; k0 < ns; k0 += 8) {
-    const bf16* kt = k + base + (size_t)k0 * d;
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
+}
+
+// The statistics pass over the `keys` keys from k0 (8 at a time) in the K
+// tile at kt (LAST: the last tile, keys < 64, whose keys at or past n are
+// left out): m, the running max of this thread's raw scores of rows g and
+// g + 8.
+template <bool LAST>
+__device__ __forceinline__ void nostage_max(float m[2],
+                                            const uint32_t qw[2][8],
+                                            const uint8_t* kt, int k0,
+                                            int keys, int n, int g, int t) {
 #pragma unroll
-    for (int kk = 0; kk < kHD / 16; ++kk)
-      mma_bf16(s, qf[kk], pair_at(kt, g, kk * 16 + 2 * t, d, n - k0),
-               pair_at(kt, g, kk * 16 + 2 * t + 8, d, n - k0));
-    const int col = k0 + 2 * t;
-    const float4 sv = make_float4(col < n ? s[0] * scale : -INFINITY,
-                                  col + 1 < n ? s[1] * scale : -INFINITY,
-                                  col < n ? s[2] * scale : -INFINITY,
-                                  col + 1 < n ? s[3] * scale : -INFINITY);
-    wsc[(k0 >> 3) * 32 + lane] = sv;
-    m0 = fmaxf(m0, fmaxf(sv.x, sv.y));
-    m1 = fmaxf(m1, fmaxf(sv.z, sv.w));
+  for (int k8 = 0; k8 < kKeys; k8 += 8) {
+    if (LAST && k8 >= keys) break;
+    float s[4];
+    group_scores(s, qw, kt, k8, g, t);
+    const int col = k0 + k8 + 2 * t;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      m[e >> 1] = fmaxf(m[e >> 1],
+                        !LAST || col + (e & 1) < n ? s[e] : -INFINITY);
   }
-  quad_max(m0);
-  quad_max(m1);
-  float l0 = 0.f, l1 = 0.f;
+}
+
+// The output pass over the `keys` keys from k0 (16 at a time; LAST as
+// above, a narrow last step's second 8 keys carrying P = 0): S again,
+// e = exp(s - m) of the scaled score against m, the row's scaled max
+// (weight<kFull> in the last tile; a full tile has no key to leave out and
+// skips its column test, whose branch around expf slowed the loop
+// measurably), added to den, P = e rounded to bf16 (the accumulators of two
+// 8-key groups are the A fragment of one 16-key step), then O += P V with
+// V from the tile at vt. Lane
+// (g, t) brings columns 8 g .. 8 g + 7 of keys 2t, 2t + 1, 2t + 8, 2t + 9;
+// n-group j's B fragment is column 8 g + j of those four, paired by byte
+// permutes, so o[j] holds output columns 16 t + j (o[j][0], o[j][2]) and
+// 16 t + 8 + j (o[j][1], o[j][3]).
+template <bool LAST>
+__device__ __forceinline__ void nostage_pv(float o[kHD / 8][4], float den[2],
+                                           const uint32_t qw[2][8],
+                                           const uint8_t* kt,
+                                           const uint8_t* vt, int k0,
+                                           int keys, int n, float scale,
+                                           const float m[2], int g, int t) {
+#pragma unroll
+  for (int k16 = 0; k16 < kKeys; k16 += 16) {
+    if (LAST && k16 >= keys) break;
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    group_scores(s[0], qw, kt, k16, g, t);
+    if (!LAST || k16 + 8 < keys) group_scores(s[1], qw, kt, k16 + 8, g, t);
+    uint32_t a[4];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int col = k0 + k16 + 8 * half + 2 * t;
+      float e[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float x = s[half][i] * scale;
+        e[i] = LAST ? weight<kFull>(x, m[i >> 1], col + (i & 1), n)
+                    : expf(x - m[i >> 1]);
+        den[i >> 1] += e[i];
+      }
+      a[2 * half] = pack_bf16(e[0], e[1]);
+      a[2 * half + 1] = pack_bf16(e[2], e[3]);
+    }
+    const uint8_t* vr = vt + (k16 + 2 * t) * kRowBytes + 16 * g;
+    const uint4 v0 = lds16(vr), v1 = lds16(vr + kRowBytes),
+                v2 = lds16(vr + 8 * kRowBytes), v3 = lds16(vr + 9 * kRowBytes);
+    const uint32_t r0[4] = {v0.x, v0.y, v0.z, v0.w};
+    const uint32_t r1[4] = {v1.x, v1.y, v1.z, v1.w};
+    const uint32_t r2[4] = {v2.x, v2.y, v2.z, v2.w};
+    const uint32_t r3[4] = {v3.x, v3.y, v3.z, v3.w};
+#pragma unroll
+    for (int j = 0; j < kHD / 8; ++j) {
+      const uint32_t sel = j & 1 ? 0x7632u : 0x5410u;  // high or low halves
+      mma_bf16(o[j], a, __byte_perm(r0[j >> 1], r1[j >> 1], sel),
+               __byte_perm(r2[j >> 1], r3[j >> 1], sel));
+    }
+  }
+}
+
+// One block per (64-query tile x, slice y), a warp per 16 query rows.
+// Shared memory as the whole-row kernel's with one warpgroup: Q, the ring
+// (the statistics pass's K tiles, then the output pass's (K, V) pairs),
+// the barriers; every tile as the input lays it out.
+__global__ void __launch_bounds__(128)
+nostage_bf16(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
+             int n, int h, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_smem(smem_raw);
+  uint8_t* ring = smem + kTile;
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(ring + kStages * kTile);
+  uint64_t* full = qbar + 1;  // kStages: ring tile i in stage i % kStages
+
+  const int head = blockIdx.y % h;
+  const int b = blockIdx.y / h;
+  const int q0 = blockIdx.x * kQRows;
+  const int nkt = (n + kKeys - 1) / kKeys;
+  const int total = 3 * nkt;  // K_0 .. K_{nkt-1}, then K_0, V_0, K_1, ..
+
+  auto stage = [&](int i) { return ring + (i % kStages) * kTile; };
+  auto load = [&](int i) {
+    uint64_t* bar = full + i % kStages;
+    const bool is_v = i >= nkt && (i - nkt) % 2;
+    const int key_tile = i < nkt ? i : (i - nkt) / 2;
+    mbar_expect(bar, kTile);
+    tma_load(stage(i), is_v ? &tv : &tk, bar, head * kHD, key_tile * kKeys,
+             b);
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + kStages; ++i) mbar_init(qbar + i, 1);
+    mbar_fence_init();
+    mbar_expect(qbar, kTile);
+    tma_load(smem, &tq, qbar, head * kHD, q0, b);
+    for (int i = 0; i < min(kStages, total); ++i) load(i);
+  }
+  __syncthreads();
+
+  auto wait = [&](int i) {
+    mbar_wait(full + i % kStages, (i / kStages) & 1);
+    return static_cast<const uint8_t*>(stage(i));
+  };
+  // every warp is done with ring tile i: its stage takes tile i + kStages
+  auto release = [&](int i) {
+    if (threadIdx.x == 0 && i + kStages < total) load(i + kStages);
+  };
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2;
+  const int t = threadIdx.x & 3;
+  const bool live = warp * 16 < n - q0;  // else no row of the warp is below n
+  mbar_wait(qbar, 0);
+  uint32_t qw[2][8];
+  row_words(smem, warp * 16 + g, g, t, qw[0]);
+  row_words(smem, warp * 16 + g + 8, g, t, qw[1]);
+
+  float m[2] = {-INFINITY, -INFINITY};
+  for (int j = 0; j < nkt; ++j) {
+    const uint8_t* kt = wait(j);
+    const int keys = min(kKeys, n - j * kKeys);
+    if (live && keys == kKeys)
+      nostage_max<false>(m, qw, kt, j * kKeys, keys, n, g, t);
+    else if (live)
+      nostage_max<true>(m, qw, kt, j * kKeys, keys, n, g, t);
+    __syncthreads();
+    release(j);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    quad_max(m[i]);
+    m[i] *= scale;  // scale > 0: the max of the scaled scores
+  }
   float o[kHD / 8][4];
 #pragma unroll
   for (int j = 0; j < kHD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  for (int key = 0; key < ns; key += 16) {
-    const float4 lo = wsc[(key >> 3) * 32 + lane];        // keys key + 2t..
-    const float4 hi = wsc[((key >> 3) + 1) * 32 + lane];  // keys key + 8 + 2t..
-    const int c = key + 2 * t;
-    const float e[8] = {
-        weight<kFull>(lo.x, m0, c, n), weight<kFull>(lo.y, m0, c + 1, n),
-        weight<kFull>(lo.z, m1, c, n), weight<kFull>(lo.w, m1, c + 1, n),
-        weight<kFull>(hi.x, m0, c + 8, n), weight<kFull>(hi.y, m0, c + 9, n),
-        weight<kFull>(hi.z, m1, c + 8, n), weight<kFull>(hi.w, m1, c + 9, n)};
-    l0 += (e[0] + e[1]) + (e[4] + e[5]);
-    l1 += (e[2] + e[3]) + (e[6] + e[7]);
-    const uint32_t a[4] = {pack_bf16(e[0], e[1]), pack_bf16(e[2], e[3]),
-                           pack_bf16(e[4], e[5]), pack_bf16(e[6], e[7])};
-    const bf16* vt = v + base + (size_t)key * d;
-    const int kr = 2 * t;
-#pragma unroll
-    for (int j = 0; j < kHD / 8; ++j) {
-      const int col = j * 8 + g;
-      const uint32_t b0 = bits_at(vt, kr, col, d, n - key) |
-                          (bits_at(vt, kr + 1, col, d, n - key) << 16);
-      const uint32_t b1 = bits_at(vt, kr + 8, col, d, n - key) |
-                          (bits_at(vt, kr + 9, col, d, n - key) << 16);
-      mma_bf16(o[j], a, b0, b1);
-    }
+  float den[2] = {0.f, 0.f};
+  for (int j = 0; j < nkt; ++j) {
+    const uint8_t* kt = wait(nkt + 2 * j);
+    const uint8_t* vt = wait(nkt + 2 * j + 1);
+    const int keys = min(kKeys, n - j * kKeys);
+    if (live && keys == kKeys)
+      nostage_pv<false>(o, den, qw, kt, vt, j * kKeys, keys, n, scale, m, g,
+                        t);
+    else if (live)
+      nostage_pv<true>(o, den, qw, kt, vt, j * kKeys, keys, n, scale, m, g,
+                       t);
+    __syncthreads();
+    release(nkt + 2 * j);
+    release(nkt + 2 * j + 1);
   }
-  quad_sum(l0);
-  quad_sum(l1);
-  bf16* ot = out + base + (size_t)q0 * d;
+  quad_sum(den[0]);
+  quad_sum(den[1]);
+  const int d = h * kHD;
+  bf16* base = out + (size_t)b * n * d + (size_t)head * kHD + 16 * t;
 #pragma unroll
-  for (int j = 0; j < kHD / 8; ++j) {
-    const int col = j * 8 + 2 * t;
-    if (r0 < n - q0)
-      *reinterpret_cast<uint32_t*>(ot + (size_t)r0 * d + col) =
-          pack_bf16(o[j][0] / l0, o[j][1] / l0);
-    if (r0 + 8 < n - q0)
-      *reinterpret_cast<uint32_t*>(ot + (size_t)(r0 + 8) * d + col) =
-          pack_bf16(o[j][2] / l1, o[j][3] / l1);
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + warp * 16 + g + 8 * i;
+    if (row >= n) continue;
+    uint32_t w[2][4];
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        w[c][j] = pack_bf16(o[2 * j][2 * i + c] / den[i],
+                            o[2 * j + 1][2 * i + c] / den[i]);
+    uint4* dst = reinterpret_cast<uint4*>(base + (size_t)row * d);
+    dst[0] = make_uint4(w[0][0], w[0][1], w[0][2], w[0][3]);
+    dst[1] = make_uint4(w[1][0], w[1][1], w[1][2], w[1][3]);
   }
 }
 
@@ -907,17 +1056,40 @@ int launch_scratch_bf16(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A map over x = [b, n, d] bf16 whose box is kKeys rows of one head's kHD
+// columns, landed without swizzle: box row r at r * kRowBytes, as the input
+// lays the head's rows out. Returns a cudaError_t.
+int encode_unswizzled(CUtensorMap* map, const void* x, int b, int n, int d) {
+  EncodeTiled encode = encoder();
+  if (!encode) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)b};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)n * d * 2};
+  const cuuint32_t box[3] = {kHD, kKeys, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult rc = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 int launch_nostage_bf16(const void* q, const void* k, const void* v,
                         void* out, int b, int n, int h, float scale,
                         cudaStream_t stream) {
   static unsigned long long attr_set = 0;
-  const int bytes = nostage_smem(n);
-  const int rc = prepare(nostage_bf16, bytes, attr_set);
+  const int bytes = nostage_smem();
+  const int d = h * kHD;
+  CUtensorMap tq, tk, tv;
+  int rc = prepare(nostage_bf16, bytes, attr_set);
+  if (!rc) rc = encode_unswizzled(&tq, q, b, n, d);
+  if (!rc) rc = encode_unswizzled(&tk, k, b, n, d);
+  if (!rc) rc = encode_unswizzled(&tv, v, b, n, d);
   if (rc) return rc;
   const dim3 grid((n + kQRows - 1) / kQRows, b * h);
-  nostage_bf16<<<grid, 128, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), n, h, scale);
+  nostage_bf16<<<grid, 128, bytes, stream>>>(tq, tk, tv,
+                                             static_cast<bf16*>(out), n, h,
+                                             scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -956,14 +1128,16 @@ int launch_scratch_f32(const void* q, const void* k, const void* v, void* out,
 // contiguous, 16-byte aligned, bf16 (is_bf16 = 1) or f32; head-major input
 // passes h = 1. mode: 0 full, 1 noexp, 2 dotsonly. norm_after: 0 divides
 // before rounding P (P1, P2), 1 after P.V (P4). staged: 1 stages the
-// operands through shared memory, 0 (P4 nostage) loads them from device
-// memory. rows: query rows per block, 64 or 128 for bf16 full
+// operands through shared memory, 0 (P4 nostage) reads them as the input
+// lays them out (bf16: in shared memory, unswizzled; f32: from device
+// memory). rows: query rows per block, 64 or 128 for bf16 full
 // normalise-before staged (P1's sweep), else 64 for bf16 and 32 for f32.
 // Built variants: full before staged (P1, P2); full, noexp and dotsonly
 // after staged, and full after unstaged (P4). Launches on `stream` and
 // returns the first error: of the shared-memory attribute or the tensor
 // maps, else cudaGetLastError(); cudaErrorInvalidValue for a variant, head
-// dim or size it does not take (the scores must fit in shared memory).
+// dim or size it does not take (f32: the scores must fit in shared
+// memory).
 extern "C" int missm_probe_rows_attention(const void* q, const void* k,
                                           const void* v, void* out, int b,
                                           int n, int h, int head_dim,
@@ -1026,13 +1200,13 @@ extern "C" int missm_probe_scratch_attention(const void* q, const void* k,
 
 // The dynamic shared memory a bf16 launch at N = n asks for: kernel 0 the
 // whole-row kernel at `rows` query rows a block (64 or 128), 1 the
-// batch-row kernel, 2 the nostage kernel (rows unused); 0 for another
+// batch-row kernel, 2 the nostage kernel (n and rows unused); 0 for another
 // kernel. What kernels/probe_attention.py::plan says.
 extern "C" int missm_probe_attention_smem(int kernel, int n, int rows) {
   switch (kernel) {
     case 0: return rows == 64 || rows == 128 ? rows_smem(rows / 64) : 0;
     case 1: return scratch_smem(scratch_wgs(n), n);
-    case 2: return nostage_smem(n);
+    case 2: return nostage_smem();
     default: return 0;
   }
 }

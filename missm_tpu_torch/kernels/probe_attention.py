@@ -13,7 +13,9 @@ The wrappers, by the TPU kernel each takes the place of (scripts/):
   stages the head's whole K and V once for all its query tiles.
 - `tower_packed_debug` (P4, ablation_probe.py:210
   `make_tower_packed_debug`): [B, N, H*hd] in one of MODES; the whole-row
-  kernel with the production kernel's rounding order and the knock-outs.
+  kernel with the production kernel's rounding order and the knock-outs,
+  nostage on a kernel of its own that reads each head's tiles as the input
+  lays them out (no swizzle, no per-head re-layout) with mma.sync.
 
 Each counts its launches under its own name in `LAUNCHES`, P1 and P2 on one
 kernel as K1 and K2(b) are. The probes time a jitted forward and nothing
@@ -25,8 +27,8 @@ The kernels are built for hd = 64, the probes' head dim.
 `plan` says what a bf16 launch computes: its grid, its query and key tiles,
 its passes over the keys and its shared memory, as the C launchers compute
 them; the largest N each kernel takes (`max_n`, SCRATCH_MAX_N) follows from
-it. The whole-row kernel keeps no score row in shared memory, so it takes
-any N.
+it. The whole-row and nostage kernels keep no score row in shared memory,
+so they take any N.
 """
 from __future__ import annotations
 
@@ -137,15 +139,15 @@ class Plan:
 
     kernel: "rows" (the whole-row kernel: P1, P2, P4 full, noexp,
     dotsonly), "scratch" (the batch-row kernel: P3) or "nostage" (P4
-    nostage, mma.sync). warpgroups: per block (nostage: its 4 warps count
-    as one). grid: the launch's blocks. rows: (first, live) of each query
-    tile that a block (rows, nostage) or one of its warpgroups in turn
-    (scratch) computes, in launch order: the full tiles, then the ragged
-    one. cols: (first, width) of each key tile every query tile visits,
-    the last narrowed to its keys rounded up to 8 (wgmma's N step; nostage:
-    16, mma.sync's k). passes: how often each query tile computes its
-    scores (the statistics pass, then the output pass; dotsonly and
-    nostage: once). smem_bytes: the block's dynamic shared memory, which
+    nostage, mma.sync on unswizzled tiles). warpgroups: per block
+    (nostage: its 4 warps count as one). grid: the launch's blocks. rows:
+    (first, live) of each query tile that a block (rows, nostage) or one
+    of its warpgroups in turn (scratch) computes, in launch order: the full
+    tiles, then the ragged one. cols: (first, width) of each key tile every
+    query tile visits, the last narrowed to its keys rounded up to 8
+    (wgmma's N step; nostage: mma.sync's n). passes: how often each query
+    tile computes its scores (the statistics pass, then the output pass;
+    dotsonly: once). smem_bytes: the block's dynamic shared memory, which
     the C launcher asks for."""
     kernel: str
     warpgroups: int
@@ -176,17 +178,19 @@ def plan(n: int, kernel: str = "rows", rows: int = DEFAULT_ROWS,
         raise ValueError(f"N must be at least 1; got {n}")
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}; got {mode!r}")
-    keys = tuple((i, _round(w, 16 if kernel == "nostage" else 8))
-                 for i, w in _tiles(n, KEYS))
-    passes = 1 if kernel == "nostage" or mode == "dotsonly" else 2
+    keys = tuple((i, _round(w, 8)) for i, w in _tiles(n, KEYS))
+    passes = 1 if mode == "dotsonly" else 2
+
+    def ring(wgs):  # 1024 (alignment), Q, the ring of key tiles, barriers
+        return 1024 + (wgs + STAGES) * TILE_BYTES + 8 * (1 + STAGES)
+
     if kernel == "rows":
         if rows not in ROWS:
             raise ValueError(f"no whole-row kernel of {rows} query rows")
         wgs = rows // QUERY_ROWS
         tiles = _tiles(n, rows)
-        smem = 1024 + (wgs + STAGES) * TILE_BYTES + 8 * (1 + STAGES)
         return Plan(kernel, wgs, slices * len(tiles), tiles, keys, passes,
-                    smem)
+                    ring(wgs))
     tiles = _tiles(n, QUERY_ROWS)
     if kernel == "scratch":
         def smem(wgs):
@@ -196,7 +200,7 @@ def plan(n: int, kernel: str = "rows", rows: int = DEFAULT_ROWS,
         return Plan(kernel, wgs, slices, tiles, keys, passes, smem(wgs))
     if kernel == "nostage":
         return Plan(kernel, 1, slices * len(tiles), tiles, keys, passes,
-                    QUERY_ROWS * _round(n, 16) * 4)
+                    ring(1))
     raise ValueError(f"no kernel {kernel!r}; one of {KERNELS}")
 
 
@@ -216,9 +220,9 @@ def _smem(kernel, n, rows, bf16):
 def max_n(kernel: str, rows: int = DEFAULT_ROWS, bf16: bool = True):
     """The largest N whose launch of `kernel` (bf16: `plan`; f32: its
     CUDA-core kernel) fits in a block's shared memory, which grows with N;
-    None for the bf16 whole-row kernel, whose shared memory holds no row
-    and does not grow with N."""
-    if bf16 and kernel == "rows":
+    None for the bf16 whole-row and nostage kernels, whose shared memory
+    holds no row and does not grow with N."""
+    if bf16 and kernel in ("rows", "nostage"):
         return None
     n = 1
     while _smem(kernel, n + 1, rows, bf16) <= SMEM_LIMIT:
@@ -339,8 +343,8 @@ def _fits(kernel, n, bf16, rows=DEFAULT_ROWS):
 
 
 def _launch_rows(q, k, v, b, n, h, mode, *, after, rows=DEFAULT_ROWS):
-    """The whole-row kernel (nostage: its mma.sync kernel) on b * h slices
-    of n rows (row pitch h * hd)."""
+    """The whole-row kernel (nostage: its own kernel on the unswizzled
+    tiles) on b * h slices of n rows (row pitch h * hd)."""
     bf16 = q.dtype == torch.bfloat16
     if not bf16:
         rows = _F32_ROWS

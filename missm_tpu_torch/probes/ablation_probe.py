@@ -11,7 +11,8 @@ swapped per arm (ARMS):
                    csrc/attention.cu, online softmax)
   packed dotsonly  P4 with the softmax knocked out: e = s, den = 1
   packed noexp     P4 with exp knocked out: e = s - m, den = sum(s - m)
-  packed nostage   P4 with its operands read from device memory, not staged
+  packed nostage   P4 with each head's operands read in shared memory as
+                   the input lays them out: no swizzled per-head tiles
   packed full      P4 as production computes it, with a whole-row softmax
   scratch          P3: one block per (batch, head), the head's whole K
                    and V staged once for all its query tiles

@@ -1036,11 +1036,19 @@ def test_probe_kernel_edges_match_plain(cuda, route, n, dtype):
     """Each probe route and mode at every tile edge and at the largest N
     its kernel takes in the type, against its plain version."""
     if n == "limit":
-        # the bf16 whole-row kernel keeps no score row and has no limit:
-        # a row longer than any kernel's limit instead
+        # the bf16 whole-row and nostage kernels keep no score row and have
+        # no limit: a row longer than any kernel's limit instead
         n = pa.max_n(PROBE_KERNELS.get(route, "rows"),
                      bf16=dtype == torch.bfloat16) or 1025
     _probe_matches_plain(cuda, route, n, dtype)
+
+
+@pytest.mark.parametrize("n", [897, 1025, 2048])
+def test_probe_nostage_takes_long_rows(cuda, n):
+    """The bf16 nostage kernel keeps no score row in shared memory, so it
+    takes N past 896, where 64 f32 score rows would outgrow a block's
+    shared memory: against packed_attention_plain(mode="nostage")."""
+    _probe_matches_plain(cuda, "P4 nostage", n, torch.bfloat16)
 
 
 @pytest.mark.parametrize("g", [1, 67])
@@ -1144,10 +1152,10 @@ def test_probe_kernels_reject_what_they_do_not_take(cuda):
                                device=cuda, dtype=dtype)
             with pytest.raises(ValueError):
                 pa.tower_scratch(long, long, long, 2)                 # N
-        longer = torch.zeros(1, pa.max_n("nostage") + 1, 128, device=cuda,
-                             dtype=torch.bfloat16)
-        with pytest.raises(ValueError):
-            pa.tower_packed_debug(longer, longer, longer, 2, "nostage")  # N
+        # bf16 nostage keeps no score row and has no N limit
+        longer = torch.zeros(1, 1025, 128, device=cuda, dtype=torch.bfloat16)
+        assert pa.tower_packed_debug(longer, longer, longer, 2,
+                                     "nostage").shape == longer.shape
         longest = torch.zeros(1, pa.max_n("rows", bf16=False) + 1, 64,
                               device=cuda)
         with pytest.raises(ValueError):

@@ -328,8 +328,11 @@ def test_attn_probe_runs_on_the_cpu(monkeypatch):
 # `plan` of the bf16 probe kernels: (kernel, query rows a block) per route
 PLAN_ROUTES = {"P1/P2/P4 rows=64": ("rows", 64), "P1 rows=128": ("rows", 128),
                "P3": ("scratch", 64), "P4 nostage": ("nostage", 64)}
+# the routes' limits, and 896: where 64 f32 score rows of N keys would
+# outgrow a block's shared memory, which the nostage kernel must pass
 PLAN_N = (1, 8, 15, 16, 17, 63, 64, 65, 127, 128, 129, 257, 320, 768, 769,
-          *sorted({pa.max_n(k, r) for k, r in PLAN_ROUTES.values()} - {None}),
+          *sorted(({pa.max_n(k, r) for k, r in PLAN_ROUTES.values()}
+                   | {896}) - {None}),
           1025)
 
 
@@ -338,10 +341,11 @@ PLAN_N = (1, 8, 15, 16, 17, 63, 64, 65, 127, 128, 129, 257, 320, 768, 769,
 def test_probe_plan_fits_and_covers_n_once(route, n):
     """Each launch's shared memory is at most SMEM_LIMIT (232,448 bytes)
     exactly where N is at most the route's limit, and the limit is the
-    largest N that fits (the whole-row kernel keeps no score row: its bytes
-    do not grow with N and it has no limit); the query tiles cover the N
-    rows once and the key tiles the N keys once, each key tile as narrow
-    as its keys allow."""
+    largest N that fits (the whole-row and nostage kernels keep no score
+    row: their bytes do not grow with N and they have no limit); the query
+    tiles cover the N rows once and the key tiles the N keys once, each
+    key tile as narrow as its keys allow (8: wgmma's N step, mma.sync's
+    n)."""
     kernel, rows = PLAN_ROUTES[route]
     limit = pa.max_n(kernel, rows)
     p = pa.plan(n, kernel, rows, slices=3)
@@ -357,18 +361,26 @@ def test_probe_plan_fits_and_covers_n_once(route, n):
     assert sum(live for _, live in p.rows) == n
     assert all(0 < live <= height for _, live in p.rows)
     assert [first for first, _ in p.cols] == list(range(0, n, pa.KEYS))
-    step = 16 if kernel == "nostage" else 8
     widths = [w for _, w in p.cols]
     assert all(w == pa.KEYS for w in widths[:-1])
-    assert n <= sum(widths) < n + step and widths[-1] % step == 0
+    assert n <= sum(widths) < n + 8 and widths[-1] % 8 == 0
     assert p.grid == 3 * (1 if kernel == "scratch" else len(p.rows))
-    assert p.passes == (1 if kernel == "nostage" else 2)
+    assert p.passes == 2
+
+
+def test_nostage_plan_holds_no_row():
+    """The nostage kernel keeps no score row: its shared memory is the same
+    constant (Q, the ring of key tiles, the barriers) at every N up to
+    4096, so it has no N limit."""
+    bytes_ = {pa.plan(n, "nostage").smem_bytes for n in range(1, 4097)}
+    assert bytes_ == {pa.plan(1, "rows").smem_bytes} == {42_024}
+    assert pa.max_n("nostage") is None
 
 
 def test_probe_plan_at_the_probes_shape():
     """The figures csrc/probe_attention.cu's note gives at N = 257 and the
     limits the wrappers hold the kernels to."""
-    assert pa.SCRATCH_MAX_N == 832 and pa.max_n("nostage") == 896
+    assert pa.SCRATCH_MAX_N == 832 and pa.max_n("nostage") is None
     assert pa.max_n("rows") is None and pa.max_n("rows", 128) is None
     rows = pa.plan(257, "rows", 64, slices=1024)
     assert (rows.warpgroups, rows.grid, rows.smem_bytes) == (1, 5120, 42_024)
@@ -381,7 +393,9 @@ def test_probe_plan_at_the_probes_shape():
     assert (p3.warpgroups, p3.grid, p3.smem_bytes) == (2, 1024, 103_464)
     assert pa.plan(768, "scratch").warpgroups == 2
     assert pa.plan(769, "scratch").warpgroups == 1
-    assert pa.plan(257, "nostage").smem_bytes == 69_632
+    ns = pa.plan(257, "nostage", slices=1024)
+    assert (ns.warpgroups, ns.grid, ns.smem_bytes) == (1, 5120, 42_024)
+    assert ns.cols[-1] == (256, 8) and ns.passes == 2
     with pytest.raises(ValueError):
         pa.plan(257, "rows", 32)
     with pytest.raises(ValueError):
