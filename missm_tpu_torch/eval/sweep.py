@@ -32,6 +32,13 @@ from ..metrics import compute_metrics
 from ..models.finetune import ModelConfig, embed_only, tree_map
 from ..models.fusion import set_statistics
 from ..utils.prefetch import prefetch
+from ..utils.profiling import count, span
+
+SPAN_POINT = "missm.eval.point"
+SPAN_WAIT = "missm.eval.wait"
+SPAN_STEP = "missm.eval.step"
+SPAN_READBACK = "missm.eval.readback"
+_END = object()
 
 
 def _pad_batch(tree, target: int):
@@ -79,6 +86,18 @@ def _gather_rows(group, n, *arrays):
     return out
 
 
+def _waited(items):
+    """`items`, each fetch inside the span of the layer's wait for its
+    input."""
+    it = iter(items)
+    while True:
+        with span(SPAN_WAIT):
+            item = next(it, _END)
+        if item is _END:
+            return
+        yield item
+
+
 def evaluate_loader(params, eval_step, loader, *, group=None):
     """Runs `eval_step` (make_eval_step's) over `loader`, each batch padded
     to the loader's `batch_size` with the padded rows, and the rows past the
@@ -86,7 +105,11 @@ def evaluate_loader(params, eval_step, loader, *, group=None):
     outputs. Host preparation runs ahead in a prefetch thread. With `group`
     (the data group) each rank's loader is its shard and the outputs are
     gathered over the group (see the module). Returns (batch losses,
-    labels, preds, probs), numpy."""
+    labels, preds, probs), numpy.
+
+    Counts, per batch, `eval.rows` (the rows the step ran: the padded
+    batch) and `eval.padded_rows` (those of them that count for nothing:
+    padding and the shard's wrap-around duplicates)."""
     target = loader.batch_size
 
     def prepared():
@@ -105,29 +128,34 @@ def evaluate_loader(params, eval_step, loader, *, group=None):
 
     losses = []
     all_labels, all_preds, all_probs = [], [], []
-    for n, labels, data, labels_p, missing_p, valid in prefetch(prepared(), 2):
-        out = eval_step(params, data, labels_p, missing_p, valid=valid)
-        if group is not None:
-            from ..parallel.collectives import all_reduce
-            sums = all_reduce(torch.stack([out["loss_sum"].double(),
-                                           out["count"].double()]), group)
-            if float(sums[1]) > 0:
-                # a batch where every rank held only duplicates has no
-                # real rows: its 0.0 would deflate the batch mean
-                losses.append(float(sums[0]) / float(sums[1]))
-            for p, pr, lab in _gather_rows(group, n, out["preds"],
-                                           out["probs"].float(),
-                                           torch.as_tensor(labels_p)):
-                all_preds.append(p.astype(np.int64))
-                all_probs.append(pr.astype(np.float32))
-                all_labels.append(lab.astype(np.asarray(labels).dtype))
-        elif n > 0:
-            # a batch of duplicates only has no real rows: its masked loss
-            # 0/0 -> 0.0 would deflate the batch mean, so it is skipped
-            losses.append(float(out["loss"]))
-            all_preds.append(out["preds"].cpu().numpy()[:n])
-            all_probs.append(out["probs"].float().cpu().numpy()[:n])
-            all_labels.append(np.asarray(labels))
+    for n, labels, data, labels_p, missing_p, valid in _waited(
+            prefetch(prepared(), 2)):
+        count("eval.rows", target)
+        count("eval.padded_rows", target - n)
+        with span(SPAN_STEP):
+            out = eval_step(params, data, labels_p, missing_p, valid=valid)
+        with span(SPAN_READBACK):
+            if group is not None:
+                from ..parallel.collectives import all_reduce
+                sums = all_reduce(torch.stack([out["loss_sum"].double(),
+                                               out["count"].double()]), group)
+                if float(sums[1]) > 0:
+                    # a batch where every rank held only duplicates has no
+                    # real rows: its 0.0 would deflate the batch mean
+                    losses.append(float(sums[0]) / float(sums[1]))
+                for p, pr, lab in _gather_rows(group, n, out["preds"],
+                                               out["probs"].float(),
+                                               torch.as_tensor(labels_p)):
+                    all_preds.append(p.astype(np.int64))
+                    all_probs.append(pr.astype(np.float32))
+                    all_labels.append(lab.astype(np.asarray(labels).dtype))
+            elif n > 0:
+                # a batch of duplicates only has no real rows: its masked loss
+                # 0/0 -> 0.0 would deflate the batch mean, so it is skipped
+                losses.append(float(out["loss"]))
+                all_preds.append(out["preds"].cpu().numpy()[:n])
+                all_probs.append(out["probs"].float().cpu().numpy()[:n])
+                all_labels.append(np.asarray(labels))
     if not all_labels:
         raise ValueError(
             "evaluate_loader: loader produced no batches (empty split, or "
@@ -217,17 +245,19 @@ def run_missing_sweep(params, cfg: ModelConfig, eval_step, test_loaders,
         path = os.path.join(out_dir, f"{name}.txt") if lead else os.devnull
         with open(path, "w", encoding="utf-8") as fout:
             for ratio, loader in per_ratio.items():
-                losses, labels, preds, probs = evaluate_loader(
-                    params, eval_step, loader, group=data_group(cfg))
-                denom = (n_types if loss_normalizer == "reference"
-                         else max(len(losses), 1))
-                metrics = compute_metrics(
-                    labels, preds, probs,
-                    loss=float(np.sum(losses) / denom))
-                results[missing_type][ratio] = metrics
-                fout.write(format_report_block(ratio, metrics))
-                if verbose:
-                    print(f"[{name}] ratio={ratio} "
-                          f"acc={metrics['accuracy']:.4f} "
-                          f"f1={metrics['f1']:.4f} auc={metrics['auc']:.4f}")
+                with span(SPAN_POINT):
+                    losses, labels, preds, probs = evaluate_loader(
+                        params, eval_step, loader, group=data_group(cfg))
+                    denom = (n_types if loss_normalizer == "reference"
+                             else max(len(losses), 1))
+                    metrics = compute_metrics(
+                        labels, preds, probs,
+                        loss=float(np.sum(losses) / denom))
+                    results[missing_type][ratio] = metrics
+                    fout.write(format_report_block(ratio, metrics))
+                    if verbose:
+                        print(f"[{name}] ratio={ratio} "
+                              f"acc={metrics['accuracy']:.4f} "
+                              f"f1={metrics['f1']:.4f} "
+                              f"auc={metrics['auc']:.4f}")
     return results

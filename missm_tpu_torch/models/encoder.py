@@ -6,13 +6,21 @@ reference's ordering-sensitive behaviour, kept explicitly).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping, Sequence
 
 import torch
 
 from ..core.config import TowerConfig
 from ..ops.basic import l2_normalize
+from ..utils.profiling import span
 from .tower import init_tower_params, text_features, vision_features
+
+
+@functools.cache
+def _tower_span(modality: str) -> str:
+    """The span name of one tower's forward, built once a modality."""
+    return f"missm.model.tower.{modality}"
 
 
 def init_encoder_params(gen: torch.Generator,
@@ -67,26 +75,27 @@ def encode(params, tower_cfgs: Mapping[str, TowerConfig], inputs: Mapping, *,
     out = {}
     any_cfg = next(iter(tower_cfgs.values()))
     for name, value in inputs.items():
-        if name == "language":
-            if isinstance(value, Mapping):
-                ids, am = value["input_ids"], value.get("attention_mask")
+        with span(_tower_span(name)):
+            if name == "language":
+                if isinstance(value, Mapping):
+                    ids, am = value["input_ids"], value.get("attention_mask")
+                else:
+                    ids, am = value, None
+                lang = params["language"]
+                _, pooled = text_features(lang["text"], any_cfg.text, ids, am,
+                                          remat=_remat_for(remat, "language"),
+                                          projection=lang["proj"], tp=tp,
+                                          pipe=pipe)
+                out[name] = l2_normalize(pooled)
             else:
-                ids, am = value, None
-            _, pooled = text_features(params["language"]["text"], any_cfg.text,
-                                      ids, am,
-                                      remat=_remat_for(remat, "language"),
-                                      projection=params["language"]["proj"],
-                                      tp=tp, pipe=pipe)
-            out[name] = l2_normalize(pooled)
-        else:
-            pooled = vision_features(params[name]["vision"],
-                                     tower_cfgs[name].vision, value,
-                                     train=train,
-                                     remat=_remat_for(remat, name),
-                                     projection=params[name]["proj"],
-                                     generator=generator, tp=tp, pipe=pipe)
-            pooled = l2_normalize(pooled)
-            if use_temp:
-                pooled = pooled * torch.exp(params[name]["logit_scale"])
-            out[name] = pooled
+                pooled = vision_features(params[name]["vision"],
+                                         tower_cfgs[name].vision, value,
+                                         train=train,
+                                         remat=_remat_for(remat, name),
+                                         projection=params[name]["proj"],
+                                         generator=generator, tp=tp, pipe=pipe)
+                pooled = l2_normalize(pooled)
+                if use_temp:
+                    pooled = pooled * torch.exp(params[name]["logit_scale"])
+                out[name] = pooled
     return out

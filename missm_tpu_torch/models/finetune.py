@@ -16,8 +16,13 @@ import torch
 from ..core.config import TowerConfig
 from ..core.device import resolve_device
 from ..ops.image_transforms import OPENAI_MEAN, OPENAI_STD
+from ..utils.profiling import span
 from .encoder import encode, init_encoder_params
 from .fusion import FusionConfig, fusion_forward, init_fusion
+
+SPAN_UPLOAD = "missm.model.upload"
+SPAN_CAST = "missm.model.cast"
+SPAN_FUSION = "missm.model.fusion"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,14 +88,16 @@ def _prepare_inputs(data: Mapping, dtype, device):
     """Move every input to `device`; media to `dtype` (uint8 media through
     _dequantize), language ids and masks as they are."""
     out = {}
-    for k, v in data.items():
-        if k == "language":
-            out[k] = ({n: torch.as_tensor(t, device=device)
-                       for n, t in v.items()} if isinstance(v, Mapping)
-                      else torch.as_tensor(v, device=device))
-            continue
-        v = torch.as_tensor(v, device=device)
-        out[k] = _dequantize(v, dtype) if v.dtype == torch.uint8 else v.to(dtype)
+    with span(SPAN_UPLOAD):
+        for k, v in data.items():
+            if k == "language":
+                out[k] = ({n: torch.as_tensor(t, device=device)
+                           for n, t in v.items()} if isinstance(v, Mapping)
+                          else torch.as_tensor(v, device=device))
+                continue
+            v = torch.as_tensor(v, device=device)
+            out[k] = (_dequantize(v, dtype) if v.dtype == torch.uint8
+                      else v.to(dtype))
     return out
 
 
@@ -115,7 +122,8 @@ def _encode(params, cfg: ModelConfig, data, device, train, generator=None):
     dt = getattr(torch, cfg.compute_dtype)
     data = _prepare_inputs(data, dt, resolve_device(device))
     # cast, then gather: FSDP moves the compute type's bytes
-    enc = _gathered(cfg, cast_tree(params["encoder"], dt), "encoder")
+    with span(SPAN_CAST):
+        enc = _gathered(cfg, cast_tree(params["encoder"], dt), "encoder")
     tp = cfg.parallel.model_axis if cfg.parallel is not None else None
     embeds = encode(enc, cfg.tower_dict, data, use_temp=cfg.use_temp,
                     train=train, remat=cfg.remat, generator=generator, tp=tp,
@@ -137,9 +145,10 @@ def model_forward(params, cfg: ModelConfig, data: Mapping, missing_index, *,
     turn."""
     embeds = _encode(params, cfg, data, device, train, generator)
     missing_index = torch.as_tensor(missing_index, device=resolve_device(device))
-    return fusion_forward(_gathered(cfg, params["fusion"], "fusion"),
-                          cfg.fusion, embeds, missing_index, train=train,
-                          generator=generator)
+    with span(SPAN_FUSION):
+        return fusion_forward(_gathered(cfg, params["fusion"], "fusion"),
+                              cfg.fusion, embeds, missing_index, train=train,
+                              generator=generator)
 
 
 @torch.inference_mode()

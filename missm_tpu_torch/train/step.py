@@ -37,6 +37,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..models.finetune import ModelConfig, model_forward, tree_map
+from ..utils.profiling import span
 from .losses import (cross_entropy, kl_distill_loss, masked_kl_distill,
                      masked_mse_loss, mse_loss, per_sample_cross_entropy,
                      total)
@@ -44,6 +45,10 @@ from .trainability import TRAIN, leaves, param_labels
 
 TEACHER_TYPES = ("MTD_stu", "KL_stu")
 EMA_DECAY = 0.999  # MTD_stu's teacher
+SPAN_STEP = "missm.train.step"
+SPAN_FORWARD = "missm.train.forward"
+SPAN_BACKWARD = "missm.train.backward"
+SPAN_OPTIMIZER = "missm.train.optimizer"
 
 
 @dataclasses.dataclass
@@ -200,6 +205,11 @@ def make_train_step(cfg: ModelConfig, tx, accum_steps: int = 1, *,
 
     def step_fn(state: TrainState, data, labels, missing_index, lr,
                 generator, valid=None):
+        with span(SPAN_STEP):
+            return _step(state, data, labels, missing_index, lr, generator,
+                         valid)
+
+    def _step(state, data, labels, missing_index, lr, generator, valid):
         treedef, trainable, frozen = partition_trainable(state.params, cfg)
         params = combine_params(treedef, trainable, frozen)
         train = [p for p in trainable if p is not None]
@@ -213,10 +223,13 @@ def make_train_step(cfg: ModelConfig, tx, accum_steps: int = 1, *,
         tx.zero_grad(set_to_none=True)
 
         if accum_steps == 1:
-            loss, _ = compute_loss(params, state.teacher_fusion, cfg, data,
-                                   labels, missing_index, generator, valid,
-                                   device=dev, group=group)
-            loss.backward()
+            with span(SPAN_FORWARD):
+                loss, _ = compute_loss(params, state.teacher_fusion, cfg,
+                                       data, labels, missing_index,
+                                       generator, valid, device=dev,
+                                       group=group)
+            with span(SPAN_BACKWARD):
+                loss.backward()
             loss = loss.detach()
         else:
             A = accum_steps
@@ -232,11 +245,14 @@ def make_train_step(cfg: ModelConfig, tx, accum_steps: int = 1, *,
             for i in range(A):
                 sl = slice(i * h, (i + 1) * h)
                 w = total(valid[sl].sum().float(), valid, group)
-                loss, _ = compute_loss(params, state.teacher_fusion, cfg,
-                                       _rows(data, sl), labels[sl],
-                                       missing_index[sl], generator,
-                                       valid[sl], device=dev, group=group)
-                (w * loss).backward()
+                with span(SPAN_FORWARD):
+                    loss, _ = compute_loss(params, state.teacher_fusion, cfg,
+                                           _rows(data, sl), labels[sl],
+                                           missing_index[sl], generator,
+                                           valid[sl], device=dev,
+                                           group=group)
+                with span(SPAN_BACKWARD):
+                    (w * loss).backward()
                 l_sum = l_sum + w * loss.detach()
                 w_sum = w_sum + w
             denom = torch.clamp(w_sum, min=1.0)
@@ -252,12 +268,13 @@ def make_train_step(cfg: ModelConfig, tx, accum_steps: int = 1, *,
         if group is not None:
             loss = total(loss, loss, group)
             _sum_replicated_grads(state.params, lay, group)
-        for pg in tx.param_groups:
-            pg["lr"] = lr
-        tx.step()
-        if ft == "MTD_stu":
-            with torch.no_grad():
-                _ema(state.teacher_fusion, state.params["fusion"])
+        with span(SPAN_OPTIMIZER):
+            for pg in tx.param_groups:
+                pg["lr"] = lr
+            tx.step()
+            if ft == "MTD_stu":
+                with torch.no_grad():
+                    _ema(state.teacher_fusion, state.params["fusion"])
         return TrainState(params=state.params, opt_state=tx.state,
                           teacher_fusion=state.teacher_fusion,
                           step=state.step + 1), {"loss": loss}

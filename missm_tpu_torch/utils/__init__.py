@@ -1,2 +1,2 @@
 from .prefetch import Prefetcher, prefetch
-from .profiling import StepTimer, trace
+from .profiling import count, counters, span, trace

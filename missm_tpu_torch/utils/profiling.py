@@ -1,4 +1,4 @@
-"""Tracing and step-time observability, after missm_tpu/utils/profiling.py.
+"""Tracing, after missm_tpu/utils/profiling.py.
 
 - `trace(logdir, device=...)`: a context manager around
   `torch.profiler.profile`, recording host and, on the card, CUDA activity,
@@ -6,18 +6,51 @@
   of the JAX package's `jax.profiler.trace`. The train loop's
   `--profile_dir` window uses the same profiler (`start_profiler`,
   `stop_profiler`).
-- `StepTimer`: host-side step and input accounting with a duty-cycle
-  estimate (the share of wall time spent in steps against input stalls),
-  the JAX class's methods, properties and `summary()` keys.
+- `span(name)`: the port's layer boundaries (`missm.*`) as
+  `record_function` ranges while a profiler records, so that they land in
+  the same trace as the card's kernels and copies, on the profiler's clock;
+  a shared null context, and nothing recorded, otherwise.
+- `count(name, k)` and `counters()`: the port's counters, process-wide int
+  totals, always on.
 """
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import List
+import threading
+
+import torch
 
 from ..core.device import resolve_device
+
+_NULL = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A `torch.profiler.record_function(name)` range while a profiler
+    records, else a shared null context. `name` is a constant of the
+    caller's module: it is never built per call."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NULL
+
+
+_counts: dict = {}
+_counts_lock = threading.Lock()
+
+
+def count(name: str, k: int = 1) -> None:
+    """Add `k` to the counter `name`."""
+    with _counts_lock:
+        _counts[name] = _counts.get(name, 0) + k
+
+
+def counters() -> dict:
+    """A snapshot of every counter: {name: int total since the process
+    started}; the difference of two snapshots is what happened between
+    them."""
+    with _counts_lock:
+        return dict(_counts)
 
 
 def start_profiler(dev):
@@ -52,45 +85,3 @@ def trace(logdir: str, *, device="cuda"):
         yield prof
     finally:
         stop_profiler(prof, logdir, "trace.json")
-
-
-class StepTimer:
-    def __init__(self):
-        self.step_times: List[float] = []
-        self.input_times: List[float] = []
-        self._t = None
-
-    def input_start(self):
-        self._t = time.perf_counter()
-
-    def input_end(self):
-        if self._t is not None:
-            self.input_times.append(time.perf_counter() - self._t)
-        self._t = time.perf_counter()
-
-    def step_end(self):
-        """Call after the step's result is on the host (or after
-        `torch.cuda.synchronize()`): launches return before the card
-        finishes."""
-        if self._t is not None:
-            self.step_times.append(time.perf_counter() - self._t)
-        self._t = None
-
-    @property
-    def duty_cycle(self) -> float:
-        total = sum(self.step_times) + sum(self.input_times)
-        if total == 0:
-            return 0.0
-        return sum(self.step_times) / total
-
-    def summary(self) -> dict:
-        import numpy as np
-        st = np.asarray(self.step_times or [0.0])
-        it = np.asarray(self.input_times or [0.0])
-        return {
-            "steps": len(self.step_times),
-            "step_ms_mean": float(st.mean() * 1000),
-            "step_ms_p50": float(np.percentile(st, 50) * 1000),
-            "input_ms_mean": float(it.mean() * 1000),
-            "duty_cycle": self.duty_cycle,
-        }

@@ -1,9 +1,7 @@
-"""The port's utilities against the JAX package's: utils/profiling.py
-(StepTimer, trace), core/prng.py (PRNGSeq) and core/cache.py
-(enable_compilation_cache).
+"""The port's utilities: utils/profiling.py (trace), core/prng.py
+(PRNGSeq) and core/cache.py (enable_compilation_cache). The spans and
+counters of utils/profiling.py are tests/test_torch_spans.py's.
 
-- StepTimer.summary() equals missm_tpu.utils.profiling.StepTimer's on the
-  same fed times (time.perf_counter patched for both);
 - PRNGSeq's discipline, not its bits (a torch.Generator cannot draw
   JAX's): one seed gives one sequence of generators; successive
   generators and the n of one split draw differently; split(n) advances
@@ -13,44 +11,14 @@
 - trace(..., device="cpu") writes a Chrome trace.
 """
 import json
-import time
 
-import numpy as np
 import pytest
 import torch
 
-from missm_tpu.utils import profiling as jprof
 from missm_tpu_torch.core import PRNGSeq
 from missm_tpu_torch.core.cache import enable_compilation_cache
 from missm_tpu_torch.kernels import build
-from missm_tpu_torch.utils import StepTimer, trace
-
-
-def _drive(timer_cls, monkeypatch, ticks):
-    clock = iter(ticks)
-    monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
-    t = timer_cls()
-    for _ in range(4):
-        t.input_start()
-        t.input_end()
-        t.step_end()
-    t.input_end()  # an input that no step followed
-    return t
-
-
-def test_step_timer_summary_equals_jax(monkeypatch):
-    # 4 clock reads a step, 2 for the last input
-    ticks = np.cumsum(np.random.default_rng(0).exponential(0.05, 18)
-                      ).tolist()
-    got = _drive(StepTimer, monkeypatch, ticks)
-    want = _drive(jprof.StepTimer, monkeypatch, ticks)
-    assert got.step_times == want.step_times
-    assert got.input_times == want.input_times
-    assert got.duty_cycle == want.duty_cycle
-    assert got.summary() == want.summary()
-    assert set(got.summary()) == {"steps", "step_ms_mean", "step_ms_p50",
-                                  "input_ms_mean", "duty_cycle"}
-    assert StepTimer().summary() == jprof.StepTimer().summary()
+from missm_tpu_torch.utils import trace
 
 
 def _draws(gens):
