@@ -2,10 +2,15 @@
 the window, trace a second window where asked, check the outputs, print the
 result line.
 
-Everything that belongs to one configuration, traffic mix, cell or metric
-is a file found by its name:
+Everything that belongs to one configuration, traffic mix, cell, metric or
+model family is a file found by its name:
 - configs/<config>.json: the sizes, source, assumed and reduced keys, and
-  the name of its plain reference (reference/<name>.py);
+  under "reference" the name of its model family;
+- a model family <family>: three modules (`family`):
+  reference/<family>.py, the plain reference and the seeded weights' maker
+  and layout; counts/<family>.py, the family's matrix products and
+  attention calls; models/<family>.py, the port's model config of a
+  configuration and the input makers;
 - traffic/<mix>.json: the mix's parameters; its "kind" names the code that
   generates and drives it (traffic/<kind>.py);
 - workloads/<cell>.json: the cell's configuration and mix, and the limit of
@@ -13,6 +18,8 @@ is a file found by its name:
 - metrics/<metric>.py: `read(ctx)`, the metric's value for this run, or
   None where the run has nothing for it to read.
 BENCHMARK.json, at the checkout's root, says which metrics a cell reports.
+Of what a run loads, only port.py, models/<family>.py and the traffic kinds
+import the port.
 """
 from __future__ import annotations
 
@@ -32,8 +39,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "missm_tpu")
 @dataclass
 class Context:
     """What a metric reader reads: the run's kind and sizes, the untraced
-    window's work and seconds, and with --trace 1 the traced window's units
-    and trace summary (trace.Summary)."""
+    window's work and seconds, and with --trace 1 the traced window's units,
+    trace summary (trace.Summary), the port's spans in it (spans.summarise:
+    ({span: spans.SpanTime}, {span: idle seconds})) and the change of the
+    port's counters over it ({counter: int})."""
     kind: str
     cfg: dict
     batch: int
@@ -43,6 +52,8 @@ class Context:
     peak_bytes: int
     units: int = 0
     trace: object = None
+    spans: tuple = None
+    counters: dict = None
 
 
 def load_json(path: Path):
@@ -68,6 +79,17 @@ def _module(path: Path, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+FAMILY_FOLDERS = {"reference": "reference", "counts": "counts",
+                  "port": "models"}
+
+
+def family(cfg: dict, part: str):
+    """Module `part` ("reference", "counts" or "port") of the model family
+    that configuration `cfg` names: portbench.<folder>.<family>."""
+    return importlib.import_module(
+        f"portbench.{FAMILY_FOLDERS[part]}.{cfg['reference']}")
 
 
 def kind_runner(kind: str):
@@ -109,16 +131,10 @@ def measure(runner, seconds: float, trace: bool, t0: float):
                   setup_s=setup_s, work=work, seconds=elapsed,
                   peak_bytes=peak)
     if trace:
-        from torch.profiler import ProfilerActivity, profile, record_function
-
-        from .trace import WINDOW_SPAN, summarise
-        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda
-                                         else [])
-        with profile(activities=acts) as prof:
-            with record_function(WINDOW_SPAN):
-                _, units, t_elapsed = runner.window(TRACE_SECONDS,
-                                                    record=False)
-        ctx.units, ctx.trace = units, summarise(prof, t_elapsed)
+        from . import spans
+        ctx.units, _, events, ctx.trace, ctx.counters = spans.trace_window(
+            runner, TRACE_SECONDS)
+        ctx.spans = spans.summarise(events)
     return ctx
 
 
@@ -136,7 +152,8 @@ def result_line(ctx, metrics, checks, device_info, trace):
         out["device"] = dict(device_info, busy_s=ctx.trace.busy_s,
                              window_s=ctx.trace.window_s)
         out["breakdown"] = {"device_ops": top(ctx.trace.device_ops),
-                            "idle_gaps": top(ctx.trace.idle_gaps)}
+                            "idle_gaps": top(ctx.trace.idle_gaps),
+                            "idle_by_span": top(ctx.spans[1])}
     out["checks"] = {c.name: {"value": c.value, "limit": c.limit}
                      for c in checks}
     return out
@@ -182,7 +199,8 @@ def run(args, t0: float) -> int:
         t = ctx.trace
         print(f"traced: {ctx.units} units in {t.window_s!r} s, {t.kernels} "
               f"kernels, {t.attention_kernels} attention kernels, launch "
-              f"calls {t.launch_names}", file=sys.stderr)
+              f"calls {t.launch_names}, counters {ctx.counters}",
+              file=sys.stderr)
     for c in checks:
         if c.note:
             print(f"{c.name}: {c.note}", file=sys.stderr)

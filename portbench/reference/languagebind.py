@@ -1,6 +1,7 @@
-"""The plain reference: LanguageBind's towers, the `sum` fusion head, the
-cross-entropy loss and Adam, in plain PyTorch on the tree of
-reference/weights.py. It imports nothing of the port.
+"""The LanguageBind family's plain reference: its towers, the `sum` fusion
+head, the cross-entropy loss and Adam, in plain PyTorch on the tree of
+reference/weights.py, whose `make_params`, `paths_of` and `trainable` it
+exports as the family's weights. It imports nothing of the port.
 
 It follows the published description: CLIP's pre-LN ViT-L/14 and text
 transformers (quick-GELU, q scaled by head_dim ** -0.5, softmax attention,
@@ -29,7 +30,7 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
-from .weights import paths_of, trainable
+from portbench.reference.weights import make_params, paths_of, trainable
 
 CODES = {"language": 1, "video": 2, "audio": 3, "image": 4}
 E4M3_MAX = 448.0

@@ -25,7 +25,8 @@ traces a window of harness.TRACE_SECONDS as the harness's --trace 1 run
 does, with the port's counters read before and after it, and prints one
 JSON line: the traced window's units, seconds and launches, every span's
 milliseconds a unit, the counters' change, the readings and idle_by_span.
-On a tree whose port has no spans or counters those parts are empty.
+The harness keeps the same spans, counters and idle_by_span in a --trace 1
+run (harness.measure), and its span metrics (metrics/*.py) are `readings`.
 """
 from __future__ import annotations
 
@@ -161,13 +162,6 @@ def readings(kind, times, counts, units):
     }
 
 
-def _port_counters():
-    """The port's counters now ({} where the port keeps none)."""
-    from missm_tpu_torch.utils import profiling
-    snapshot = getattr(profiling, "counters", None)
-    return {} if snapshot is None else snapshot()
-
-
 def _delta(before, after):
     return {k: v - before.get(k, 0) for k, v in after.items()}
 
@@ -178,14 +172,15 @@ def trace_window(runner, seconds):
     events, trace.Summary, the counters' change)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from .port import counters
     acts = [ProfilerActivity.CPU]
     if runner.device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    before = _port_counters()
+    before = counters()
     with profile(activities=acts) as prof:
         with record_function(trace.WINDOW_SPAN):
             _, units, window_s = runner.window(seconds, record=False)
-    counts = _delta(before, _port_counters())
+    counts = _delta(before, counters())
     return (units, window_s, prof.profiler.kineto_results.events(),
             trace.summarise(prof, window_s), counts)
 

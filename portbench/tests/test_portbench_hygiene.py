@@ -1,7 +1,7 @@
 """What the harness loads: a rehearsal of a run (a tiny cell on the CPU)
 loads no module whose top-level name is jax, jaxlib, flax or missm_tpu,
-compared whole; the plain reference loads nothing of missm_tpu_torch. Each
-runs in a fresh interpreter."""
+compared whole; a model family's plain reference and counts load nothing of
+missm_tpu_torch. Each runs in a fresh interpreter."""
 import json
 import subprocess
 import sys
@@ -31,9 +31,11 @@ import json, sys
 sys.path[:0] = [{root!r}, {tests!r}]
 import torch
 from conftest import tiny_config
-from portbench.reference import languagebind as ref, weights
+from portbench import harness
 cfg = tiny_config("lb-video-audio-text")
-params = weights.make_params(cfg, 1, "cpu")
+ref = harness.family(cfg, "reference")
+harness.family(cfg, "counts").attention_calls(cfg, 2, True)
+params = ref.make_params(cfg, 1, "cpu")
 data = {{"language": torch.full((2, 16), 98), "video": torch.randn(2, 3, 4, 32, 32),
         "audio": torch.randn(2, 3, 32, 48)}}
 ref.eval_logits(ref.Model(cfg), params, data, torch.tensor([0, 2]), 1)

@@ -6,7 +6,7 @@ import pytest
 import torch
 
 from conftest import tiny_config, tiny_mix
-from portbench import inputs
+from portbench import harness, inputs
 from portbench.reference import languagebind as ref
 from portbench.reference.weights import make_params, paths_of, trainable
 
@@ -15,18 +15,18 @@ CELLS = [("lb-image-text", "mvsa-train-b64"),
 
 
 def _setup(name, mixname, seed=7):
-    from portbench import port
     cfg = tiny_config(name)
     cfg["compute_dtype"] = "float32"
+    model = harness.family(cfg, "port")
     mix = tiny_mix(mixname)
     rng = np.random.default_rng(seed)
     gen = torch.Generator().manual_seed(seed)
     B = mix["batch"]
-    data = {"language": inputs.text(cfg, B, rng, mix["text_lengths"])}
-    data.update(inputs.media(cfg, B, gen))
+    data = {"language": model.text(cfg, B, rng, mix["text_lengths"])}
+    data.update(model.media(cfg, B, gen))
     labels = inputs.labels(B, cfg["fusion"]["output_dims"], rng)
     codes = inputs.train_codes(B, mix["codes"], rng)
-    return cfg, port.model_config(cfg), data, labels, codes
+    return cfg, model.model_config(cfg), data, labels, codes
 
 
 @pytest.mark.parametrize("name,mixname", CELLS)

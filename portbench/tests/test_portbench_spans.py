@@ -141,3 +141,58 @@ def test_a_rehearsed_window(cell, mix, want):
     out = spans.report(r.kind, *window)
     assert out["readings"] == got and out["idle_under_a_span_pct"] is None
     assert out["spans_ms_per_unit"].keys() == times.keys()
+
+
+SPAN_METRICS = {
+    "sweep": ["eval_host_ms_per_batch.sweep", "input_wait_ms_per_batch.sweep",
+              "padded_rows.sweep", "upload_ms_per_batch.sweep",
+              "cast_ms_per_batch.sweep"],
+    "train": ["upload_ms_per_step.train", "cast_ms_per_step.train",
+              "backward_ms_per_step.train", "optimizer_ms_per_step.train"],
+}
+
+
+@pytest.mark.parametrize("cell, mix", [
+    ("lb-image-text", "mvsa-test-sweep"),
+    ("lb-video-audio-text", "sims-train-b16"),
+])
+def test_the_harness_keeps_the_spans_and_counters(cell, mix):
+    """A rehearsed --trace 1 measure on the CPU: its Context holds the spans
+    and counters that spans.trace_window gives a window, each span metric
+    reads spans.readings of them, and the breakdown carries idle_by_span."""
+    mix = tiny_mix(mix)
+    r = harness.kind_runner(mix["kind"])(tiny_config(cell), mix, 5,
+                                         torch.device("cpu"))
+    ctx = harness.measure(r, 0.1, True, time.perf_counter())
+    times, by_span = ctx.spans
+    window = spans.trace_window(r, 0.2)
+    assert set(times) == set(spans.summarise(window[2])[0])
+    assert set(ctx.counters) == set(window[4])
+
+    want = spans.readings(r.kind, times, ctx.counters, ctx.units)
+    got = {n: harness.reader(n)(ctx) for n in SPAN_METRICS[r.kind]}
+    assert got == want and all(v is not None for v in got.values())
+    if r.kind == "sweep":
+        assert got["padded_rows.sweep"] == 100 * 1 / 12
+        theirs = spans.readings(r.kind, spans.summarise(window[2])[0],
+                                window[4], window[0])
+        assert theirs["padded_rows.sweep"] == got["padded_rows.sweep"]
+    line = harness.result_line(ctx, [], [], {}, True)
+    assert line["breakdown"]["idle_by_span"] == trace.top(by_span)
+
+
+@pytest.mark.parametrize("kind", ["sweep", "train"])
+def test_span_metrics_read_nothing_untraced(kind):
+    """On an untraced run, and on a traced run of the other kind, each of
+    the nine span metrics reads None."""
+    bare = harness.Context(kind=kind, cfg={}, batch=4, setup_s=1.0, work=8,
+                           seconds=1.0, peak_bytes=0)
+    times, _ = spans.summarise(_events())
+    other = harness.Context(kind="train" if kind == "sweep" else "sweep",
+                            cfg={}, batch=4, setup_s=1.0, work=8, seconds=1.0,
+                            peak_bytes=0, units=2, spans=(times, {}),
+                            counters={"eval.rows": 8})
+    for name in SPAN_METRICS["sweep"] + SPAN_METRICS["train"]:
+        assert harness.reader(name)(bare) is None, name
+    for name in SPAN_METRICS[kind]:
+        assert harness.reader(name)(other) is None, name

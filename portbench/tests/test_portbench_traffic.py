@@ -6,7 +6,7 @@ import pytest
 import torch
 
 from conftest import tiny_config
-from portbench import inputs
+from portbench import harness, inputs
 from portbench.checks import metrics
 
 BIG = 2 ** 31 + 12345
@@ -14,10 +14,11 @@ BIG = 2 ** 31 + 12345
 
 def _draw(seed, name="lb-image-text"):
     cfg = tiny_config(name)
+    model = harness.family(cfg, "port")
     rng = np.random.default_rng(seed)
     gen = torch.Generator().manual_seed(seed)
-    text = inputs.text(cfg, 9, rng, (3, 12))
-    return (text, inputs.media(cfg, 9, gen, block=4),
+    text = model.text(cfg, 9, rng, (3, 12))
+    return (text, model.media(cfg, 9, gen, block=4),
             inputs.labels(9, 3, rng), inputs.train_codes(9, [0, 1, 4], rng),
             inputs.missing_codes(9, "mixed", 0.5, ["language", "image"], seed))
 

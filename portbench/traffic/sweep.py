@@ -1,9 +1,11 @@
 """Traffic kind "sweep": the missing-ratio sweep of a test split.
 
 The mix (traffic/<mix>.json) gives the split's rows, the batch, the missing
-types and ratios, the classes and the token lengths. Set-up draws the
-weights and the split from the seed, keeps the split in host memory and runs
-one (type, ratio) point as warm-up. The window drives the port's
+types and ratios, the classes and the token lengths. The configuration's
+model family (harness.family) gives the weights, the port's model config,
+the inputs and the plain reference. Set-up draws the weights and the split
+from the seed, keeps the split in host memory and runs one (type, ratio)
+point as warm-up. The window drives the port's
 `run_missing_sweep` with `make_eval_step`'s step one point at a time, in
 order and wrapping around, a closed loop: every batch is uploaded, run and
 read back before the next. It counts the real rows of every point completed.
@@ -32,8 +34,7 @@ import torch
 
 from .. import inputs
 from ..checks import Check, metrics as harness_metrics
-from ..reference import languagebind as ref
-from ..reference.weights import make_params
+from ..harness import family
 
 
 class Loader:
@@ -56,6 +57,7 @@ class Runner:
 
     def __init__(self, cfg, mix, seed, device):
         self.cfg, self.mix, self.seed, self.device = cfg, mix, seed, device
+        self.ref = family(cfg, "reference")
         self.batch = mix["batch"]
         self.n = mix["rows"]
         real = [m for m in cfg["modality_types"]]
@@ -77,17 +79,17 @@ class Runner:
 
         from .. import port
 
-        dev = self.device
+        dev, model = self.device, family(self.cfg, "port")
         if dev.type == "cuda":
             port.build_kernels(self.mix["kernels"])
-        self.params = make_params(self.cfg, self.seed, dev)
-        self.model_cfg = port.model_config(self.cfg)
+        self.params = self.ref.make_params(self.cfg, self.seed, dev)
+        self.model_cfg = model.model_config(self.cfg)
         step = make_eval_step(self.model_cfg, device=dev)
         rng = np.random.default_rng(self.seed)
         gen = torch.Generator(device=dev).manual_seed(self.seed)
-        self.data = {"language": inputs.text(self.cfg, self.n, rng,
-                                             self.mix["text_lengths"])}
-        self.data.update(inputs.media(self.cfg, self.n, gen))
+        self.data = {"language": model.text(self.cfg, self.n, rng,
+                                            self.mix["text_lengths"])}
+        self.data.update(model.media(self.cfg, self.n, gen))
         self.labels = inputs.labels(self.n, self.cfg["fusion"]["output_dims"],
                                     rng)
         self.out_dir = os.path.join(tempfile.gettempdir(), "portbench-sweep")
@@ -111,7 +113,8 @@ class Runner:
         loader = Loader(self.data, self.labels, self.codes[point], self.batch)
         res = self._sweep(self.params, self.model_cfg, self.step,
                           {t: {r: loader}}, self.out_dir,
-                          self.mix["dataset"], "sum", verbose=False,
+                          self.mix["dataset"],
+                          self.cfg["fusion"]["fusion_type"], verbose=False,
                           device=self.device)
         if self.record:
             self.results.append((self.next_point, point, res[t][r]))
@@ -163,7 +166,7 @@ class Runner:
             for k, v in ours.items():
                 metric_err = max(metric_err, abs(reported[k] - v))
 
-        model = ref.Model(self.cfg, "f32")
+        model = self.ref.Model(self.cfg, "f32")
         logit_err = pred_gap = 0.0
         for lp_ref, pred, lp_port in self._sampled(model):
             logit_err = max(logit_err, centred_gap(lp_port, lp_ref))
@@ -182,7 +185,7 @@ class Runner:
                                        len(self.outs)))
         sample = [self.outs[i] for i in picks]
         self.free()
-        b = self.batch
+        ref, b = self.ref, self.batch
         for _, point, j, out in sample:
             sl = slice(j * b, min((j + 1) * b, self.n))
             n = sl.stop - sl.start
@@ -206,7 +209,8 @@ class Runner:
     def control(self, limits):
         """The check's numbers with the reference at float8 in the port's
         place (no metric_err: the control runs no sweep)."""
-        model, low = ref.Model(self.cfg, "f32"), ref.Model(self.cfg, "fp8")
+        model = self.ref.Model(self.cfg, "f32")
+        low = self.ref.Model(self.cfg, "fp8")
         logit_err = pred_gap = 0.0
         for lp_ref, pred, lp in self._sampled(model, control=low):
             logit_err = max(logit_err, centred_gap(lp, lp_ref))

@@ -1,7 +1,9 @@
 """Traffic kind "train": LoRA fine-tuning, one Adam step per batch.
 
 The mix (traffic/<mix>.json) gives the batch, the pool of batches, the
-missing codes drawn per row, the learning rate and the token lengths.
+missing codes drawn per row, the learning rate and the token lengths. The
+configuration's model family (harness.family) gives the weights and their
+layout, the port's model config, the inputs and the plain reference.
 Set-up draws the weights and a pool of distinct batches from the seed (host
 memory, the loaders' layout), builds the port's train state
 (`init_train_state`'s Adam) and step (`make_train_step`, one pass a step),
@@ -37,8 +39,7 @@ import torch
 
 from .. import inputs
 from ..checks import Check, leaf_gaps
-from ..reference import languagebind as ref
-from ..reference.weights import make_params, paths_of, trainable
+from ..harness import family
 
 CHECKED_STEPS = 3
 BETA1 = 0.9
@@ -49,6 +50,7 @@ class Runner:
 
     def __init__(self, cfg, mix, seed, device):
         self.cfg, self.mix, self.seed, self.device = cfg, mix, seed, device
+        self.ref = family(cfg, "reference")
         self.batch = mix["batch"]
         self.lr = mix["learning_rate"]
         self.next = 0
@@ -58,32 +60,32 @@ class Runner:
 
         from .. import port
 
-        dev = self.device
+        dev, model, ref = self.device, family(self.cfg, "port"), self.ref
         if dev.type == "cuda":
             port.build_kernels(self.mix["kernels"])
         rng = np.random.default_rng(self.seed)
         gen = torch.Generator(device=dev).manual_seed(self.seed)
         B, pool = self.batch, self.mix["pool"]
-        data = {"language": inputs.text(self.cfg, B * pool, rng,
-                                         self.mix["text_lengths"])}
-        data.update(inputs.media(self.cfg, B * pool, gen))
+        data = {"language": model.text(self.cfg, B * pool, rng,
+                                       self.mix["text_lengths"])}
+        data.update(model.media(self.cfg, B * pool, gen))
         labels = inputs.labels(B * pool, self.cfg["fusion"]["output_dims"], rng)
         codes = inputs.train_codes(B * pool, self.mix["codes"], rng)
         self.pool = [(inputs.rows(data, slice(i * B, (i + 1) * B)),
                       labels[i * B:(i + 1) * B], codes[i * B:(i + 1) * B])
                      for i in range(pool)]
 
-        self.params = make_params(self.cfg, self.seed, dev)
-        self.named = paths_of(self.params)
-        self.paths = [path for path, _ in self.named if trainable(path)]
-        cfg = port.model_config(self.cfg)
+        self.params = ref.make_params(self.cfg, self.seed, dev)
+        self.named = ref.paths_of(self.params)
+        self.paths = [path for path, _ in self.named if ref.trainable(path)]
+        cfg = model.model_config(self.cfg)
         self.state, self.tx = init_train_state(self.params, cfg)
         self.step_fn = make_train_step(cfg, self.tx, accum_steps=1, device=dev)
         # the head's dropout draws; the reference draws the same masks
         self.drop_seed = self.seed + 1
         self.gen = torch.Generator(device=dev).manual_seed(self.drop_seed)
 
-        train = [leaf for path, leaf in self.named if trainable(path)]
+        train = [leaf for path, leaf in self.named if ref.trainable(path)]
         start = [leaf.detach().clone() for leaf in train]
         self.losses = [self._step() for _ in range(CHECKED_STEPS)]
         self.change = [float((leaf.detach() - s).norm())
@@ -99,7 +101,8 @@ class Runner:
         if self.next == 1:
             # the first moment after one step is (1 - beta1) g
             exp_avg = [self.tx.state.get(leaf, {}).get("exp_avg")
-                       for path, leaf in self.named if trainable(path)]
+                       for path, leaf in self.named
+                       if self.ref.trainable(path)]
             # kept in host memory until the check
             self.first_grad = [None if m is None else
                                (m / (1 - BETA1)).to("cpu") for m in exp_avg]
@@ -118,11 +121,11 @@ class Runner:
         return steps * self.batch, steps, elapsed
 
     def check(self, limits):
-        dev = self.device
-        start = make_params(self.cfg, self.seed, dev)
+        dev, ref = self.device, self.ref
+        start = ref.make_params(self.cfg, self.seed, dev)
         frozen_err = 0.0
-        for (path, leaf), (_, s) in zip(self.named, paths_of(start)):
-            if not trainable(path):
+        for (path, leaf), (_, s) in zip(self.named, ref.paths_of(start)):
+            if not ref.trainable(path):
                 frozen_err = max(frozen_err, float(
                     (leaf.detach().float() - s).abs().max()))
         self.free()
@@ -133,8 +136,9 @@ class Runner:
     def _reference(self, start, precision):
         """The reference's three steps from `start` (updated in place) at
         `precision`: (losses, first gradients, change norms)."""
-        train0 = [leaf.clone() for path, leaf in paths_of(start)
-                  if trainable(path)]
+        ref = self.ref
+        train0 = [leaf.clone() for path, leaf in ref.paths_of(start)
+                  if ref.trainable(path)]
         losses, first, after = ref.train_steps(
             ref.Model(self.cfg, precision), start, self._reference_batches(),
             self.lr, self.mix["reference_rows"])
@@ -146,23 +150,24 @@ class Runner:
         place, against the float32 reference (no frozen_err: the reference
         has no frozen copy to keep)."""
         self.free()
-        dev = self.device
+        dev, make = self.device, self.ref.make_params
         self.losses, first, self.change = self._reference(
-            make_params(self.cfg, self.seed, dev), "fp8")
+            make(self.cfg, self.seed, dev), "fp8")
         self.first_grad = [g.cpu() for g in first]
         del first
         losses, first, change = self._reference(
-            make_params(self.cfg, self.seed, dev), "f32")
+            make(self.cfg, self.seed, dev), "f32")
         return [c for c in self.compare(losses, first, change, limits, 0.0)
                 if c.name != "frozen_err"]
 
     def _reference_batches(self):
         dev, fd = self.device, self.cfg["fusion"]["fusion_dim"]
         keep = 1.0 - self.cfg["fusion"]["dropout_prob"]
-        masks = ref.seeded_dropout(self.drop_seed, (self.batch, fd), keep, dev)
+        masks = self.ref.seeded_dropout(self.drop_seed, (self.batch, fd),
+                                        keep, dev)
         out = []
         for data, labels, codes in self.pool[:CHECKED_STEPS]:
-            out.append((ref.to_device(data, dev),
+            out.append((self.ref.to_device(data, dev),
                         torch.as_tensor(labels, device=dev),
                         torch.as_tensor(codes, device=dev), next(masks)))
         return out
